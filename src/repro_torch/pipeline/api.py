@@ -1,0 +1,194 @@
+"""`PersistencePipeline` — one front door for persistence diagrams.
+
+PyTorch counterpart of ``repro.pipeline.api``:
+
+    from repro_torch.pipeline import PersistencePipeline, TopoRequest
+
+    pipe = PersistencePipeline()                 # backend="fused", on cuda
+    res  = pipe.run(TopoRequest(field=f, grid=g, top_k=50))
+    ress = pipe.run_batch([TopoRequest(field=f) for f in fields])
+
+``run`` and ``run_batch`` share one path: requests are resolved, lowered
+to a :class:`Plan`, grouped by plan and field shape, and each group runs
+the front-end (order, then ONE batched lower-star rows launch over the
+(B, nv) stack, then the scatter) before the per-request back-end
+(critical extraction, D0, dual, D1).  A single ``run`` is a group of one.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.gradient import scatter_results_batch
+
+from .backends import Backend, get_backend, get_sandwich_backend
+from .plan import Plan, PlanCache
+from .request import TopoRequest, strip_field
+from .result import DiagramResult
+from .stages import (ALL_STAGES, FRONT_STAGES, PipelineState, StageReport,
+                     _sync, run_stages)
+
+_STAGES_BY_NAME = {st.name: st for st in ALL_STAGES}
+
+
+def _back_stage_names(grid_dim: int, homology_dims) -> tuple:
+    """The back-end stage chain for the requested dimensions: D0 always
+    runs (its saddle set feeds the dual stage); the dual and D1 engines
+    are dropped when no requested dimension needs their output."""
+    dims = set(homology_dims)
+    names = ["d0"]
+    need_d1 = (grid_dim == 3 and bool(dims & {1, 2})) \
+        or (grid_dim == 2 and 1 in dims)
+    need_dual = (grid_dim >= 2 and bool(dims & {grid_dim - 1, grid_dim})) \
+        or (grid_dim == 3 and need_d1) or grid_dim == 1
+    if need_dual:
+        names.append("d_top")
+    if need_d1 or grid_dim <= 1:
+        names.append("d1")
+    return tuple(names)
+
+
+class _Config:
+    """What a stage reads: the gradient backend and the sandwich engine."""
+
+    def __init__(self, backend: Backend, sandwich):
+        self.backend = backend
+        self.sandwich = sandwich
+
+
+class PersistencePipeline:
+    """Staged DMS executor on one torch device.
+
+    backend : gradient registry name (``"fused"``, ``"prepass"``,
+        ``"torch"``) or a :class:`Backend`; the default for requests that
+        name none.
+    sandwich_backend : sandwich registry name (``"torch"``).
+    device : torch device; ``None`` means ``"cuda"``, which must be
+        available (pass ``device="cpu"`` to run on the CPU, where the
+        kernel backends use the plain PyTorch pairing).
+    plan_cache : cache of the per-grid scatter offset tables.
+    """
+
+    def __init__(self, backend: Union[str, Backend] = "fused", *,
+                 sandwich_backend: str = "torch", device=None,
+                 plan_cache: Optional[PlanCache] = None):
+        self.backend = backend if isinstance(backend, Backend) \
+            else get_backend(backend)
+        self.sandwich = get_sandwich_backend(sandwich_backend)
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "PersistencePipeline runs on CUDA by default, and CUDA is "
+                "not available; pass device='cpu' to run on the CPU")
+        self.device = dev
+        self.plan_cache = plan_cache if plan_cache is not None \
+            else PlanCache()
+
+    def _get_backend(self, name: str) -> Backend:
+        return self.backend if name == self.backend.name else get_backend(name)
+
+    @staticmethod
+    def _as_request(request, grid=None, **options) -> TopoRequest:
+        if isinstance(request, TopoRequest):
+            if grid is not None or options:
+                raise TypeError(
+                    "pass options inside the TopoRequest, not alongside it")
+            return request
+        return TopoRequest(field=request, grid=grid, **options)
+
+    # -- lower -----------------------------------------------------------
+
+    def lower(self, request, grid=None, **options) -> Plan:
+        """Resolve a request into an inspectable, hashable :class:`Plan`."""
+        return self._lower_resolved(
+            self._as_request(request, grid, **options).resolve())
+
+    def _lower_resolved(self, req: TopoRequest) -> Plan:
+        g = req.grid
+        hdims = req.homology_dims if req.homology_dims is not None \
+            else tuple(range(g.dim + 1))
+        backend = req.backend if req.backend is not None \
+            else self.backend.name
+        self._get_backend(backend)
+        sandwich = get_sandwich_backend(
+            req.sandwich_backend or self.sandwich.name).name
+        return Plan(dims=g.dims, backend=backend, sandwich_backend=sandwich,
+                    device=str(self.device), homology_dims=hdims,
+                    stage_names=tuple(st.name for st in FRONT_STAGES)
+                    + _back_stage_names(g.dim, hdims))
+
+    # -- run -------------------------------------------------------------
+
+    def run(self, request: Union[TopoRequest, np.ndarray, torch.Tensor],
+            grid=None, **options) -> DiagramResult:
+        """Execute one request end to end."""
+        req = self._as_request(request, grid, **options).resolve()
+        return self._run_group([req], self._lower_resolved(req))[0]
+
+    def run_batch(self, requests: Sequence) -> List[DiagramResult]:
+        """Execute a batch: same-plan, same-shape requests share one
+        batched front-end launch.  Results come back in submission order."""
+        reqs = [self._as_request(r).resolve() for r in requests]
+        plans = [self._lower_resolved(r) for r in reqs]
+        groups: dict = {}
+        for i, (req, plan) in enumerate(zip(reqs, plans)):
+            groups.setdefault((plan.key, req.field_shape), []).append(i)
+        out: List[Optional[DiagramResult]] = [None] * len(reqs)
+        for idxs in groups.values():
+            for i, res in zip(idxs, self._run_group([reqs[i] for i in idxs],
+                                                    plans[idxs[0]])):
+                out[i] = res
+        return out
+
+    def _field(self, req: TopoRequest) -> torch.Tensor:
+        f = req.field if isinstance(req.field, torch.Tensor) \
+            else torch.from_numpy(np.ascontiguousarray(req.field))
+        return f.to(self.device).reshape(-1)
+
+    def _run_group(self, reqs: List[TopoRequest],
+                   plan: Plan) -> List[DiagramResult]:
+        """Batched front-end (one rows launch over the stacked batch), then
+        per-request back-ends."""
+        cfg = _Config(self._get_backend(plan.backend),
+                      get_sandwich_backend(plan.sandwich_backend))
+        grid = reqs[0].grid
+        B = len(reqs)
+        reports = [StageReport("pipeline") for _ in reqs]
+        states = [PipelineState(grid, self._field(r)) for r in reqs]
+        for state, report in zip(states, reports):
+            run_stages(state, cfg, report, stages=(_STAGES_BY_NAME["order"],))
+
+        t0 = time.perf_counter()
+        rows = cfg.backend.rows(grid, torch.stack([s.order for s in states]))
+        gfs = scatter_results_batch(grid, *rows, B=B,
+                                    offsets=plan.row_offsets(self.plan_cache))
+        del rows
+        _sync()
+        dt = (time.perf_counter() - t0) / B
+        for state, report, gf in zip(states, reports, gfs):
+            rep = report.child("gradient")
+            rep.seconds = dt
+            n_crit = gf.n_critical()
+            rep.count(n_critical=sum(n_crit.values()), batch_size=B,
+                      **{f"n_critical_d{k}": v for k, v in n_crit.items()})
+            state.gf = gf
+
+        rest = tuple(_STAGES_BY_NAME[n] for n in ("extract_sort",)
+                     + plan.stage_names[len(FRONT_STAGES):])
+        out = []
+        for req, state, report in zip(reqs, states, reports):
+            run_stages(state, cfg, report, stages=rest)
+            f = state.f
+            res = DiagramResult(
+                state.diagram(), report.flat(),
+                report if req.include_report else None,
+                request=strip_field(req), plan=plan,
+                _values_fn=(lambda vids, f=f: f[vids]) if f.numel() else None)
+            res.arrays()
+            res._values_fn = None
+            out.append(res)
+        return out
