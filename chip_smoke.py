@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
 """On-card smoke test of the PyTorch / CUDA port (``src/repro_torch``).
 
-    python3 chip_smoke.py          # from the repository root, one GPU
+    python3 chip_smoke.py                  # from the repository root, one GPU
+    python3 chip_smoke.py --timing-of DIR  # phase 5 alone, on DIR's kernels
 
 Phases (one line each; any failing phase makes the script exit non-zero):
 
 1. build    — both CUDA kernels with nvcc from ``src/repro_torch/kernels/
               csrc`` (one nvcc per source, started together); prints the
-              build seconds, ptxas' register / stack / spill report and
+              build seconds, ptxas' registers / stack / spills of each of
+              the four instantiations, the launch shape, shared memory and
+              resident blocks per SM the runtime reports, and
               ``nvidia-smi --query-gpu=name,power.limit``.
 2. kernels  — the fused and prepass kernels bit-equal to the plain PyTorch
               version on the card (tolerance 0: all outputs are integers)
               over asymmetric, thin, 2-D and 1-D grids, int32 and int64
               ranks, 127^3 (packed-key grid) and 128^3 (first column-key
-              grid), a batch of 3, and 256^3.
+              grid), a batch of 3, 256^3, and the edges of the kernels'
+              128-vertex tiles: dims that are no multiple of it, nx = ny =
+              1, batches of 3 whose tiles cross a member's end, and int64
+              ranks above 2^31.
 3. main     — the main path: ``PersistencePipeline().run`` on ``isabel``
               256^3 and ``random`` 128^3 through the ``fused`` kernel, and
               the ``prepass`` backend on ``random`` 128^3 as its
@@ -25,14 +31,22 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               then ``check_gradient_valid`` on the 256^3 gradient.
 4. cpu      — diagrams on the card equal those on the CPU (32^3 wavelet,
               32^3 random, a thin 2-D grid).
-5. timing   — CUDA-event times of ``fused`` at 256^3 and 512^3 and of
-              ``prepass`` and the plain version at 256^3, each beside its
-              bound (bytes over 3.35 TB/s, integer operations of this
-              run's data over 33.5 T/s).
+5. timing   — CUDA-event times of ``fused`` and ``prepass`` at 256^3
+              (``isabel``, ``random``) and 512^3 (``random``) and of the
+              plain version at 256^3, each beside its bound (the longer of
+              its bytes over 3.35 TB/s and the integer operations the
+              pairing needs on this run's data over 33.5 T/s), the pops
+              per vertex and the warp divergence factor of that data.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script prints no result and exits non-zero.
+
+``--timing-of DIR`` runs only phase 5 (without the plain version) on the
+port in another tree DIR, for instance the parent commit unpacked with
+``git archive`` into a git-ignored directory; it prints no result lines.
+To compare two trees, time them in turns in one call on one card (A, B,
+B, A).
 """
 
 import json
@@ -65,22 +79,53 @@ def nvidia_smi_line():
 # operation and byte counts of one lower-star pairing launch
 # --------------------------------------------------------------------------
 
-def pairing_work(status, vstat, rank_bytes, prepass, chunk=1 << 22):
-    """(bytes, integer operations) of the pairing over these outputs.
+def io_bytes(n, rank_bytes, prepass):
+    """Bytes a pairing launch must move: each input read once (ranks,
+    plus the (n, 27) tensor for the prepass kernel), each output written
+    once (74 + 74 + 1 + 4 B/vertex)."""
+    return n * rank_bytes * (28 if prepass else 1) + n * (74 + 74 + 1 + 4)
 
-    Bytes: each input read once (ranks, plus the (n, 27) tensor for the
-    prepass kernel), each output written once (74 + 74 + 1 + 4 B/vertex).
-    Operations follow the kernel's loop on this run's data: a setup of
-    ~790 per vertex (lower-star test of the 74 rows and the vertex pop),
-    then per pop a 2-op status scan of all 74 rows plus ~24 ops for every
-    row still available; the available count falls by 2 per pair and 1
-    per critical row, and pairs-first order gives the fewest.  Counted
-    in vertex chunks to bound the temporaries."""
+
+def _warp_spread(x):
+    """Sum over the whole warps of 32 consecutive entries of x of
+    (max x 32 / sum)."""
+    w = x[:len(x) // 32 * 32].reshape(-1, 32).double()
+    return float((w.max(1).values * 32 / w.sum(1)).sum())
+
+
+def pairing_work(status, vstat, chunk=1 << 22):
+    """{ops, ops_v1, pops_per_vertex, divergence, divergence_regrouped}
+    of the pairing over these outputs.
+
+    ``ops`` counts the integer operations the pairing needs on this run's
+    data, whatever a kernel's design: per vertex 14 compares that find the
+    lower ones among the 14 neighbours the star's rows reach, 36 + 2 x 24
+    ANDs that decide which triangle and tet rows lie in the lower star, the
+    sort of each lower-star row's key (1 compare for a triangle, 3 for a
+    tet), and per pop one operation for each lower-star row still
+    available (its test as a candidate, with its compare in the argmin):
+    the lower edges for the vertex pop, then, counting every pair pop
+    before every critical pop (the order with the fewest), the rows left.
+    ``ops_v1`` counts the first port's loop the way its own model did: a
+    setup of ~790, then per pop a 2-op scan of all 74 rows plus ~24 for
+    every row still available.
+
+    Pops per vertex are the vertex pop plus every pair and critical pop.
+    ``divergence`` is the mean over warps of 32 consecutive vertices of
+    (max pops x 32 / sum of pops): the loop trips a warp runs over the
+    trips its threads need; ``divergence_regrouped`` is the same over the
+    warps the kernels form (each block of 128 ordered by its number of
+    lower neighbours, the count of lower edge rows).  Counted in vertex
+    chunks (multiples of 128)."""
+    import torch
     n = status.shape[0]
-    ops = 790 * n
+    ops = ops_v1 = 0
+    pops_sum, div, divr, warps = 0, 0.0, 0.0, 0
     for i in range(0, n, chunk):
         st, vs = status[i:i + chunk], vstat[i:i + chunk]
-        lower = (st != 0).sum(1)
+        low = st != 0
+        lower = low.sum(1)
+        lower_edges = low[:, :14].sum(1)
         has_edge = (vs == 2).long()
         pairs = (st == 3).sum(1) - has_edge
         crits = (st == 4).sum(1)
@@ -88,15 +133,30 @@ def pairing_work(status, vstat, rank_bytes, prepass, chunk=1 << 22):
         iters = pairs + crits + 1
         avail_sum = (pairs * a0 - pairs * (pairs - 1)) \
             + (crits * (a0 - 2 * pairs) - crits * (crits - 1) // 2)
-        ops += int((148 * iters + 24 * avail_sum).sum())
-    reads = n * rank_bytes * (28 if prepass else 1)
-    nbytes = reads + n * (74 + 74 + 1 + 4)
-    return nbytes, ops
+        ops_v1 += 790 * len(st) + int((148 * iters + 24 * avail_sum).sum())
+        ops += (14 + 36 + 48) * len(st) + int(
+            (low[:, 14:50].sum(1) + 3 * low[:, 50:].sum(1) + lower_edges
+             + avail_sum).sum())
+        pops = pairs + crits + 1
+        pops_sum += int(pops.sum())
+        div += _warp_spread(pops)
+        m = len(pops) // 128 * 128
+        order = torch.argsort(lower_edges[:m].reshape(-1, 128), dim=1,
+                              stable=True)
+        order = (order + torch.arange(0, m, 128, device=order.device)[:, None]
+                 ).reshape(-1)
+        divr += _warp_spread(pops[:m][order])
+        warps += len(pops) // 32
+    return dict(ops=ops, ops_v1=ops_v1, pops_per_vertex=pops_sum / n,
+                divergence=div / max(warps, 1),
+                divergence_regrouped=divr / max(n // 128 * 4, 1))
 
 
-def bound_ms(nbytes, ops):
-    t_b = nbytes / HBM_BYTES_PER_S * 1e3
-    t_o = ops / INT_OPS_PER_S * 1e3
+def bound_ms(work):
+    """The least time for ``work``: its bytes over the memory rate or the
+    operations it needs over the integer rate, whichever is longer."""
+    t_b = work["bytes"] / HBM_BYTES_PER_S * 1e3
+    t_o = work["ops"] / INT_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -120,18 +180,43 @@ def cuda_ms(fn, reps):
 # phases
 # --------------------------------------------------------------------------
 
+def ptxas_report(log_text):
+    """{ranks: {registers, stack, spill_stores, spill_loads}} of each
+    kernel instantiation in one source's ``ptxas -v`` log."""
+    import re
+    out, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = "int32" if "IiE" in m.group(1) else "int64"
+            out[cur] = {}
+        elif cur and "stack frame" in line:
+            st, ss, sl = (int(x) for x in re.findall(r"(\d+) bytes", line))
+            out[cur].update(stack=st, spill_stores=ss, spill_loads=sl)
+        elif cur and "Used" in line:
+            out[cur]["registers"] = int(re.search(r"Used (\d+) reg",
+                                                  line).group(1))
+    return out
+
+
 def phase_build(smi):
+    import torch
     from repro_torch.kernels import build
+    from repro_torch.kernels import lower_star as LS
     t0 = time.perf_counter()
     info = build.build_all()
     secs = time.perf_counter() - t0
     log("build", seconds=round(secs, 3),
         per_source={k: round(v["seconds"], 3) for k, v in info.items()},
         card=repr(smi))
+    report = {}
     for name, v in info.items():
-        for line in v["log"].splitlines():
-            if "Used" in line or "stack frame" in line:
-                log("ptxas", source=name, line=line.strip())
+        for ranks, r in ptxas_report(v["log"]).items():
+            dtype = torch.int32 if ranks == "int32" else torch.int64
+            r.update(LS.kernel_attrs(name, dtype))
+            report[(name, ranks)] = r
+            log("ptxas", kernel=name, ranks=ranks, **r)
+    return report
 
 
 def _rows_equal(got, want):
@@ -156,30 +241,40 @@ def phase_kernels():
     from repro_torch.kernels import lower_star as LS
     from repro_torch.kernels import ref
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    cases = [((5, 3, 7), 1, torch.int32), ((5, 3, 7), 1, torch.int64),
-             ((33, 17, 9), 1, torch.int32), ((1, 5, 6), 1, torch.int32),
-             ((7, 5, 1), 1, torch.int64), ((64, 1, 48), 1, torch.int32),
-             ((16,), 1, torch.int64), ((40, 30, 20), 3, torch.int32),
-             ((127, 127, 127), 1, torch.int32),
-             ((128, 128, 128), 1, torch.int32),
-             ((256, 256, 256), 1, torch.int32)]
+    i32, i64, big = torch.int32, torch.int64, 3 << 31
+    # (dims, batch, rank dtype, offset added to every rank)
+    cases = [((5, 3, 7), 1, i32, 0), ((5, 3, 7), 1, i64, 0),
+             ((33, 17, 9), 1, i32, 0), ((1, 5, 6), 1, i32, 0),
+             ((7, 5, 1), 1, i64, 0), ((64, 1, 48), 1, i32, 0),
+             ((16,), 1, i64, 0), ((40, 30, 20), 3, i32, 0),
+             ((127, 127, 127), 1, i32, 0), ((128, 128, 128), 1, i32, 0),
+             ((256, 256, 256), 1, i32, 0),
+             # tile edges: no multiple of 128, nx = ny = 1, tiles that
+             # cross a batch member's end, int64 ranks above 2^31
+             ((129, 7, 5), 1, i32, 0), ((1, 1, 300), 1, i32, 0),
+             ((1, 1, 300), 1, i64, big), ((7, 6, 5), 3, i32, 0),
+             ((33, 17, 9), 1, i64, big), ((40, 30, 20), 3, i64, big),
+             ((129, 1, 1), 3, i64, big)]
     max_err = 0
-    for dims, B, dtype in cases:
+    for dims, B, dtype, offset in cases:
         g = Grid.of(*dims)
         f = torch.randn((B, g.nv), generator=gen, device="cuda")
-        o = torch.stack([vertex_order(fb) for fb in f]).to(dtype)
-        # int64 ranks reach the kernels only when the bound forbids int32
-        kb = g.nv if dtype == torch.int32 else 2 ** 40
+        o = torch.stack([vertex_order(fb) for fb in f])
         nb = torch.cat([neighbor_orders(g, ob) for ob in o])
         want = ref.lower_star_gradient_torch(nb, o.reshape(-1),
                                              rank_bound=g.nv)
+        o = (o + offset).to(dtype)
+        nb = torch.cat([neighbor_orders(g, ob) for ob in o])
+        # int64 ranks reach the kernels only when the bound forbids int32
+        kb = g.nv + offset if dtype == torch.int32 else 2 ** 40
         fused = LS.fused_lower_star_gradient(g, o, rank_bound=kb)
         pre = LS.lower_star_gradient_prepass(nb, o.reshape(-1), rank_bound=kb)
         torch.cuda.synchronize()
         err = max(_rows_equal(fused, want), _rows_equal(pre, want))
         max_err = max(max_err, err)
         log("kernels", dims=dims, batch=B, ranks=str(dtype).split(".")[-1],
-            packed_keys=ref.use_packed_keys(g.nv), max_abs_err=err)
+            offset=offset, packed_keys=ref.use_packed_keys(g.nv),
+            max_abs_err=err)
         del f, o, nb, want, fused, pre
     torch.cuda.empty_cache()
     return max_err
@@ -318,7 +413,10 @@ def phase_cpu():
             pairs={p: len(cpu.pairs(p)) for p in cpu.homology_dims})
 
 
-def phase_timing(isabel_256):
+def phase_timing(isabel_256, report, plain=True):
+    """CUDA-event times of both kernels on the [timing] fields, each beside
+    its bound; ``report`` ([ptxas] phase) adds the launch shape, and
+    ``plain`` times the plain version at 256^3 ``isabel``."""
     import torch
     from repro_torch.core.gradient import neighbor_orders
     from repro_torch.core.grid import Grid, vertex_order
@@ -333,61 +431,93 @@ def phase_timing(isabel_256):
                                            device="cuda"),
               ("random", 512): torch.randn(512 ** 3, generator=gen,
                                            device="cuda")}
+    shape = {k: {x: report[(k, "int32")][x] for x in
+                 ("block", "registers", "stack_bytes", "static_smem",
+                  "dynamic_smem", "blocks_per_sm")} if report else {}
+             for k in ("fused", "prepass")}
     for (name, n), f in fields.items():
         g = Grid.of(n, n, n)
         o = vertex_order(f).to(torch.int32)
+        del f
         out = LS.fused_lower_star_gradient(g, o)
-        nbytes, ops = pairing_work(out[0], out[2], 4, prepass=False)
+        work = pairing_work(out[0], out[2])
         del out
-        ms = cuda_ms(lambda: LS.fused_lower_star_gradient(g, o), reps=5)
-        bms, by = bound_ms(nbytes, ops)
-        log("timing", kernel="fused", field=name, dims=(n, n, n), ms=ms,
-            bound_ms=bms, bound_by=by, bytes=nbytes, ops=ops,
-            ops_per_vertex=ops / g.nv, smi=smi)
-        records[("fused", name, n)] = dict(ms=ms, bound_ms=bms, bound_by=by)
-        if (name, n) == ("isabel", 256):
-            nb = neighbor_orders(g, o)
-            out = LS.lower_star_gradient_prepass(nb, o, rank_bound=g.nv)
-            pbytes, pops = pairing_work(out[0], out[2], 4, prepass=True)
-            del out
-            pms = cuda_ms(lambda: LS.lower_star_gradient_prepass(
-                nb, o, rank_bound=g.nv), reps=5)
-            pbms, pby = bound_ms(pbytes, pops)
-            plain = cuda_ms(lambda: ref.lower_star_gradient_torch(
+        nb = neighbor_orders(g, o)
+        runs = {"fused": (lambda: LS.fused_lower_star_gradient(g, o),
+                          dict(work, bytes=io_bytes(g.nv, 4, False))),
+                "prepass": (lambda: LS.lower_star_gradient_prepass(
+                    nb, o, rank_bound=g.nv),
+                    dict(work, bytes=io_bytes(g.nv, 4, True)))}
+        for kernel, (fn, w) in runs.items():
+            ms = cuda_ms(fn, reps=5)
+            bms, by = bound_ms(w)
+            log("timing", kernel=kernel, field=name, dims=(n, n, n), ms=ms,
+                bound_ms=bms, bound_by=by, bytes=w["bytes"], ops=w["ops"],
+                ops_v1=w["ops_v1"], ops_per_vertex=w["ops"] / g.nv,
+                ops_v1_per_vertex=w["ops_v1"] / g.nv,
+                pops_per_vertex=w["pops_per_vertex"],
+                divergence=w["divergence"],
+                divergence_regrouped=w["divergence_regrouped"],
+                **shape[kernel], smi=smi)
+            records[(kernel, name, n)] = dict(ms=ms, bound_ms=bms,
+                                              bound_by=by)
+        if plain and (name, n) == ("isabel", 256):
+            plain_ms = cuda_ms(lambda: ref.lower_star_gradient_torch(
                 nb, o, rank_bound=g.nv), reps=1)
-            log("timing", kernel="prepass", field=name, dims=(n, n, n),
-                ms=pms, bound_ms=pbms, bound_by=pby, plain_ms=plain, smi=smi)
-            records[("prepass", name, n)] = dict(ms=pms, bound_ms=pbms,
-                                                 bound_by=pby)
-            records["plain_ms"] = plain
-            del nb
-        del o
+            log("timing", kernel="plain", field=name, dims=(n, n, n),
+                ms=plain_ms, smi=smi)
+            records["plain_ms"] = plain_ms
+        del nb, o, runs
         torch.cuda.empty_cache()
     return records
 
 
-def main():
-    if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
-        print("chip_smoke.py: src/repro_torch is not beside this script; "
-              "run it from a checkout of the repository", file=sys.stderr)
+def time_tree(root):
+    """The [timing] phase alone, on the kernels of the port in ``root``
+    (for instance another commit unpacked with ``git archive``)."""
+    from repro_torch.fields.generators import make_field
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    build.build_all()
+    log("build", tree=root, seconds=round(time.perf_counter() - t0, 3))
+    phase_timing(make_field("isabel", (256, 256, 256), seed=SEED), None,
+                 plain=False)
+    return 0
+
+
+def main(argv):
+    import argparse
+    ap = argparse.ArgumentParser(description="On-card smoke test of the "
+                                 "PyTorch / CUDA port.")
+    ap.add_argument("--timing-of", metavar="DIR",
+                    help="only time the kernels of the port in the tree DIR "
+                    "([timing] fields, no plain version, no result lines); "
+                    "to compare two trees, time each in turns in one call")
+    args = ap.parse_args(argv)
+    root = os.path.abspath(args.timing_of or HERE)
+    if not os.path.isdir(os.path.join(root, "src", "repro_torch")):
+        print(f"chip_smoke.py: no src/repro_torch in {root}; run it from a "
+              "checkout of the repository", file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.join(HERE, "src"))
+    sys.path.insert(0, os.path.join(root, "src"))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this smoke test runs on a GPU",
               file=sys.stderr)
         return 2
+    if args.timing_of:
+        return time_tree(root)
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     log("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
-    phase_build(smi)
+    report = phase_build(smi)
     max_err = phase_kernels()
     launches, isabel = phase_main()
     phase_gradient(isabel)
     phase_cpu()
-    rec = phase_timing(isabel)
+    rec = phase_timing(isabel, report)
     kernels = []
     for key, src, line in (("fused", "fused.cu", 255),
                            ("prepass", "prepass.cu", 170)):
@@ -410,4 +540,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

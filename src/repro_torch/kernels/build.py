@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled on first use into a shared library
 with a plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a
 -O3 -shared``) under ``kernels/build/`` (listed in ``.gitignore``), named
-by a hash of the sources, the generated table header and the flags, so
-an edited source rebuilds and an unchanged one loads at once.  The table
-header ``ls_tables.h`` is written from ``core.gradient.PACKED``.
+by a hash of every source under ``csrc/`` (``*.cu``, ``*.cuh``, ``*.h``),
+the generated table header and the flags, so an edited or added source
+rebuilds and an unchanged tree loads at once.  The table header
+``ls_tables.h`` is written from ``core.gradient.PACKED``.
 :func:`build_all` starts one nvcc per source, all at once.
 
 Nothing here runs when the module is imported; nothing here falls back:
@@ -42,18 +43,44 @@ BUILD_INFO: Dict[str, dict] = {}
 
 
 def tables_header() -> str:
-    """ls_tables.h: the packed star tables as __constant__ arrays."""
-    def rows(a: np.ndarray) -> str:
-        return ",\n".join("  {" + ", ".join(str(int(x)) for x in r) + "}"
-                          for r in a)
+    """ls_tables.h: the packed star as X-macro lists of compile-time
+    constants, so every loop over the 74 rows unrolls with known indices.
+
+    Edge row e joins the vertex to one neighbour; a triangle's faces in
+    the star are the edges to its two other vertices, and a tet's are
+    the triangles on its three.  So the lists name triangles by their
+    edges and tets by their triangles, in ``PACKED["fid"]`` order."""
+    oth = GR.PACKED["others"].astype(int)
+    fid = GR.PACKED["fid"].astype(int)
+    ne, nt, nq = (int(G.NSTAR[k]) for k in (1, 2, 3))
+    t0, q0 = ne, ne + nt
+    edge_of = {int(oth[e, 0]): e for e in range(ne)}
+
+    def slot(j):                    # neighbour slot -> (dx, dy, dz)
+        return j % 3 - 1, j // 3 % 3 - 1, j // 9 - 1
+
+    edges = " \\\n  ".join(
+        "X({}, {}, {}, {}, {})".format(e, int(oth[e, 0]), *slot(int(oth[e, 0])))
+        for e in range(ne))
+    tris = " \\\n  ".join(
+        f"X({i}, {fid[t0 + i, 0]}, {fid[t0 + i, 1]})" for i in range(nt))
+    tets = " \\\n  ".join(
+        "X({}, {}, {}, {}, {}, {}, {})".format(
+            i, *(fid[q0 + i] - t0), *(edge_of[int(j)] for j in oth[q0 + i]))
+        for i in range(nq))
     return (
         "// Generated from repro_torch.core.gradient.PACKED; do not edit.\n"
-        "#pragma once\n#include <cstdint>\n"
-        f"#define LS_R {GR.NROWS}\n#define LS_EDGE_ROWS {G.NSTAR[1]}\n"
-        f"__constant__ int8_t LS_OTH[{GR.NROWS}][3] = {{\n"
-        f"{rows(GR.PACKED['others'])}\n}};\n"
-        f"__constant__ int8_t LS_FID[{GR.NROWS}][3] = {{\n"
-        f"{rows(GR.PACKED['fid'])}\n}};\n")
+        "#pragma once\n"
+        f"#define LS_R {GR.NROWS}\n#define LS_NE {ne}\n"
+        f"#define LS_NT {nt}\n#define LS_NQ {nq}\n"
+        "// X(e, j, dx, dy, dz): edge row e joins the vertex to neighbour\n"
+        "// slot j = (dx+1) + 3(dy+1) + 9(dz+1)\n"
+        f"#define LS_EDGES(X) \\\n  {edges}\n"
+        "// X(i, ea, eb): triangle row LS_NE + i, faces edges ea, eb\n"
+        f"#define LS_TRIS(X) \\\n  {tris}\n"
+        "// X(i, ta, tb, tc, ea, eb, ec): tet row LS_NE + LS_NT + i, faces\n"
+        "// triangles ta, tb, tc; other vertices those of edges ea, eb, ec\n"
+        f"#define LS_TETS(X) \\\n  {tets}\n")
 
 
 def _nvcc() -> str:
@@ -70,8 +97,12 @@ def _nvcc() -> str:
 
 
 def _digest(name: str, header: str) -> str:
-    h = hashlib.sha256()
-    for p in (CSRC / f"{name}.cu", CSRC / "lower_star.cuh"):
+    """Hash of every source under ``CSRC`` (names and bytes), the table
+    header and the flags: any edited or added source names a new build."""
+    h = hashlib.sha256(name.encode())
+    for p in sorted(q for pat in ("*.cu", "*.cuh", "*.h")
+                    for q in CSRC.glob(pat)):
+        h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(header.encode())
     h.update(" ".join(FLAGS).encode())

@@ -2,9 +2,10 @@
 
 - :func:`fused_lower_star_gradient` — ``csrc/fused.cu``, the production
   front-end (replaces the fused Pallas kernel ``_fused_call``,
-  ``src/repro/kernels/lower_star.py:255``): one thread per vertex
-  gathers its 27 neighbours from the unpadded order tensor and pairs its
-  lower star; no (nv, 27) tensor and no padded volume is written.
+  ``src/repro/kernels/lower_star.py:255``): a block stages a window of
+  the unpadded order tensor in shared memory, and one thread per vertex
+  takes its star neighbours from there and pairs its lower star; no
+  (nv, 27) tensor and no padded volume is written.
 - :func:`lower_star_gradient_prepass` — ``csrc/prepass.cu`` (replaces
   ``_prepass_call``, ``lower_star.py:170``): the same pairing over an
   (n, 27) neighbour tensor gathered beforehand with
@@ -14,7 +15,8 @@ Both return packed rows: status (n, 74) int8, partner (n, 74) int8,
 vstat (n,) int8, vpart (n,) int32.  On tensors that lie on the CPU the
 wrappers run the plain version (:func:`.ref.lower_star_gradient_torch`);
 on CUDA tensors they launch the kernel on the current stream or raise —
-there is no fallback.  ``LAUNCHES`` counts kernel launches.
+there is no fallback.  ``LAUNCHES`` counts kernel launches;
+:func:`kernel_attrs` reports each kernel's launch shape and resources.
 """
 
 from __future__ import annotations
@@ -39,12 +41,27 @@ _ARGTYPES = {
 }
 
 
+_SUFFIX = {torch.int32: "i32", torch.int64: "i64"}
+
+
 def _cfun(lib_name: str, fn: str, dtype: torch.dtype):
-    suffix = {torch.int32: "i32", torch.int64: "i64"}[dtype]
-    f = getattr(build.library(lib_name), f"{fn}_{suffix}")
+    f = getattr(build.library(lib_name), f"{fn}_{_SUFFIX[dtype]}")
     f.argtypes = _ARGTYPES[fn]
     f.restype = ctypes.c_int
     return f
+
+
+def kernel_attrs(name: str, dtype: torch.dtype) -> dict:
+    """Launch shape and resources of kernel ``name`` ("fused" or
+    "prepass") for int32 or int64 ranks, as the CUDA runtime reports
+    them (builds the kernel at first use; needs a CUDA device)."""
+    f = getattr(build.library(name), f"ls_{name}_attrs_{_SUFFIX[dtype]}")
+    f.argtypes = [_P]
+    f.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    _raise_on(f(ctypes.cast(out, _P)), f"{name} attributes")
+    return dict(zip(("block", "registers", "stack_bytes", "static_smem",
+                     "dynamic_smem", "blocks_per_sm"), out))
 
 
 def _maybe_int32(x: torch.Tensor, rank_bound) -> torch.Tensor:
@@ -73,7 +90,7 @@ def _outputs(n: int, device):
 
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{name} kernel call failed: cudaError {err}")
 
 
 def fused_lower_star_gradient(grid: Grid, orders: torch.Tensor, *,

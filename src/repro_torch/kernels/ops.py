@@ -34,9 +34,9 @@ def gradient_hbm_model(dims, rank_bytes=None):
 
     - ``prepass``: the gather reads the order field and writes a (nv, 27)
       rank tensor; the kernel reads that back: 27w + 27w + w.
-    - ``fused``: each thread reads its 27 neighbours, but neighbouring
-      threads share them through L1/L2, so device memory sees each rank
-      about once: w.
+    - ``fused``: a block of 128 vertices loads a window of nine runs of
+      130 ranks into shared memory; neighbouring blocks share those runs
+      through L2, so device memory sees each rank about once: w.
     """
     nx, ny, nz = dims
     if rank_bytes is None:

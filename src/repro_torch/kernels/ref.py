@@ -18,7 +18,9 @@ bound on vertex ranks, i.e. ``grid.nv``):
   table with a three-pass lexicographic argmin.
 
 Both give identical rows: pops only ever select lower-star rows, whose
-keys are distinct.
+keys are distinct.  :func:`local_rank_keys` is the plain form of the CUDA
+kernels' keys (each neighbour replaced by its rank among the vertex's
+lower neighbours, three 4-bit fields).
 """
 
 from __future__ import annotations
@@ -35,6 +37,11 @@ OTH = np.asarray(GR.PACKED["others"], dtype=np.int64)   # (74,3), -1 pad
 FID = np.asarray(GR.PACKED["fid"], dtype=np.int64)      # (74,3), -1 pad
 
 NOT_L, AVAIL, TAIL, HEAD, CRIT = GR.NOT_L, GR.AVAIL, GR.TAIL, GR.HEAD, GR.CRIT
+
+# edge row e joins the vertex to neighbour slot EDGE_NBR[e]; every row's
+# other vertices are among these 14, so OTH_EDGE names them by edge
+EDGE_NBR = OTH[:EDGE_ROWS, 0]
+OTH_EDGE = np.where(OTH >= 0, np.argmax(OTH[..., None] == EDGE_NBR, -1), -1)
 
 # ranks below this bound pack 3 key elements into one int64 (21 bits each)
 PACK_BOUND = 1 << 21
@@ -84,6 +91,28 @@ def star_values(nbrs: torch.Tensor, ov: torch.Tensor):
     ok = (~real) | (vals >= 0)
     lower = (~real) | (vals < ov[:, None, None])
     return vals, (ok & lower).all(dim=-1)
+
+
+def local_ranks(nbrs: torch.Tensor, ov: torch.Tensor) -> torch.Tensor:
+    """(n, 14) int32 rank of each edge's neighbour among the vertex's lower
+    neighbours (1..14), 0 when it is not lower (or outside the grid)."""
+    v = nbrs[:, torch.as_tensor(EDGE_NBR, device=nbrs.device)]
+    low = (v >= 0) & (v < ov[:, None])
+    v = torch.where(low, v, ov[:, None])      # never below a lower value
+    rk = 1 + (v[:, None, :] < v[:, :, None]).sum(-1, dtype=torch.int32)
+    return torch.where(low, rk, 0)
+
+
+def local_rank_keys(nbrs: torch.Tensor, ov: torch.Tensor) -> torch.Tensor:
+    """(n, 74) int32 row keys of the CUDA kernels: the row's local ranks
+    (:func:`local_ranks`, 0 padded; at most 14) sorted descending, as three
+    4-bit fields (12 bits; the kernels keep bit j of every row's key as one
+    row mask).  On lower-star rows they order like the global keys,
+    whatever the rank type or magnitude."""
+    oe = torch.as_tensor(OTH_EDGE, device=nbrs.device)
+    vals = torch.where(oe >= 0, local_ranks(nbrs, ov)[:, oe.clamp(min=0)], 0)
+    k = sort3_desc(vals)
+    return (k[..., 0] << 8) | (k[..., 1] << 4) | k[..., 2]
 
 
 def _onehot_set(arr, idx, value, active, rows):

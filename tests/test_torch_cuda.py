@@ -44,6 +44,48 @@ def test_cuda_kernels_match_plain(cuda, dims, dtype):
             assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("dims,batch,dtype,offset", [
+    ((129, 7, 5), 1, torch.int32, 0),          # no multiple of the tile
+    ((130, 3, 2), 1, torch.int32, 0),
+    ((1, 1, 300), 1, torch.int32, 0),          # nx = ny = 1
+    ((1, 1, 300), 1, torch.int64, 3 << 31),
+    ((7, 6, 5), 3, torch.int32, 0),            # tiles cross a member's end
+    ((129, 1, 1), 3, torch.int64, 3 << 31),
+    ((33, 17, 9), 1, torch.int64, 3 << 31),    # int64 ranks above 2**31
+    ((40, 30, 20), 3, torch.int64, 3 << 31),
+])
+def test_cuda_kernels_tile_edges(cuda, dims, batch, dtype, offset):
+    """Both kernels take 128 consecutive vertices per block: ragged last
+    tiles, thin grids, tiles across batch members and large int64 ranks
+    give the plain version's rows bit for bit."""
+    g = Grid.of(*dims)
+    rng = np.random.default_rng(17)
+    o = torch.stack([vertex_order(torch.from_numpy(
+        rng.standard_normal(g.nv).astype(np.float32)).cuda())
+        for _ in range(batch)])
+    want = ref.lower_star_gradient_torch(
+        torch.cat([neighbor_orders(g, ob) for ob in o]), o.reshape(-1),
+        rank_bound=g.nv)
+    o = (o + offset).to(dtype)
+    nb = torch.cat([neighbor_orders(g, ob) for ob in o])
+    bound = g.nv if dtype == torch.int32 else 2 ** 40
+    for got in (LS.fused_lower_star_gradient(g, o, rank_bound=bound),
+                LS.lower_star_gradient_prepass(nb, o.reshape(-1),
+                                               rank_bound=bound)):
+        torch.cuda.synchronize()
+        for a, b in zip(want, got):
+            assert torch.equal(a, b)
+
+
+def test_cuda_kernel_attrs(cuda):
+    """No instantiation keeps a stack frame in local memory."""
+    for name in ("fused", "prepass"):
+        for dtype in (torch.int32, torch.int64):
+            a = LS.kernel_attrs(name, dtype)
+            assert a["block"] == 128 and a["blocks_per_sm"] >= 1
+            assert a["stack_bytes"] == 0, (name, dtype, a)
+
+
 @pytest.mark.parametrize("backend", ["fused", "prepass"])
 def test_cuda_run_matches_cpu_run(cuda, backend):
     dims = (24, 20, 16)

@@ -213,6 +213,36 @@ def test_rows_match_prepass_pallas_interpret(dims):
         GR.neighbor_orders(g, to), to, rank_bound=g.nv), dims)
 
 
+# rank variants of the key transform: (name, dtype, offset)
+RANK_VARIANTS = [("i32", torch.int32, 0), ("i64", torch.int64, 0),
+                 ("i64_above_2_40", torch.int64, 2 ** 40)]
+
+
+@pytest.mark.parametrize("variant", RANK_VARIANTS, ids=lambda v: v[0])
+@pytest.mark.parametrize("dims", FUSED_DIMS)
+def test_local_rank_keys_order_like_global_keys(dims, variant):
+    """On every vertex's lower-star rows, the kernels' 12-bit local-rank
+    keys order the rows as the global descending 3-tuples do."""
+    _, dtype, offset = variant
+    _, _, order = _orders(dims, seed=14)
+    to = (torch.from_numpy(order) + offset).to(dtype)
+    nb = GR.neighbor_orders(G.Grid.of(*dims), to)
+    local = ref.local_rank_keys(nb, to)
+    assert local.dtype == torch.int32 and int(local.max()) < 2 ** 12
+    vals, in_l = ref.star_values(nb, to)
+    k = ref.sort3_desc(vals)                                   # (n, 74, 3)
+    a, b = k[:, :, None, :], k[:, None, :, :]
+    lex_lt = (a[..., 0] < b[..., 0]) | (a[..., 0] == b[..., 0]) & (
+        (a[..., 1] < b[..., 1]) | (a[..., 1] == b[..., 1]) &
+        (a[..., 2] < b[..., 2]))
+    loc_lt = local[:, :, None] < local[:, None, :]
+    both = in_l[:, :, None] & in_l[:, None, :]
+    assert torch.equal(lex_lt & both, loc_lt & both)
+    # lower-star keys are distinct, and non-lower neighbours rank 0
+    eq = (local[:, :, None] == local[:, None, :]) & both
+    assert int(eq.sum()) == int(in_l.sum())
+
+
 def test_wrappers_reject_other_devices_and_shapes():
     g = G.Grid.of(3, 3, 3)
     with pytest.raises(ValueError):
