@@ -2,15 +2,16 @@
 """On-card smoke test of the PyTorch / CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py                  # from the repository root, one GPU
-    python3 chip_smoke.py --timing-of DIR  # phase 5 alone, on DIR's kernels
+    python3 chip_smoke.py --timing-of DIR  # the timing phase alone, on DIR
 
 Phases (one line each; any failing phase makes the script exit non-zero):
 
-1. build    — both CUDA kernels with nvcc from ``src/repro_torch/kernels/
+1. build    — both CUDA sources with nvcc from ``src/repro_torch/kernels/
               csrc`` (one nvcc per source, started together); prints the
               build seconds, ptxas' registers / stack / spills of each of
-              the four instantiations, the launch shape, shared memory and
-              resident blocks per SM the runtime reports, and
+              the six instantiations (fused whole-grid and halo entries,
+              prepass; int32 and int64), the launch shape, shared memory
+              and resident blocks per SM the runtime reports, and
               ``nvidia-smi --query-gpu=name,power.limit``.
 2. kernels  — the fused and prepass kernels bit-equal to the plain PyTorch
               version on the card (tolerance 0: all outputs are integers)
@@ -19,7 +20,14 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               grid), a batch of 3, 256^3, and the edges of the kernels'
               128-vertex tiles: dims that are no multiple of it, nx = ny =
               1, batches of 3 whose tiles cross a member's end, and int64
-              ranks above 2^31.
+              ranks above 2^31.  Then the fused kernel's halo entry on the
+              (nzl+2, ny, nx) key volumes of streamed chunks (int64
+              (value, vid) keys), bit-equal to the plain version and to
+              the whole-grid fused rows of the same slab under
+              ``vertex_order``: first, interior and last chunks of 256^3,
+              a chunk that is the whole grid (two -1 ghosts), nzl = 1,
+              nx = ny = 1, ragged (129, 7, 5) slabs, many tied values and
+              keys above 2^62.
 3. main     — the main path: ``PersistencePipeline().run`` on ``isabel``
               256^3 and ``random`` 128^3 through the ``fused`` kernel, and
               the ``prepass`` backend on ``random`` 128^3 as its
@@ -29,20 +37,37 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               not have run on the card.  Gradient check: the critical
               counts have Euler characteristic 1 and match the diagram;
               then ``check_gradient_valid`` on the 256^3 gradient.
-4. cpu      — diagrams on the card equal those on the CPU (32^3 wavelet,
+4. stream   — the streamed path: ``diagram_stream(ArraySource)`` on
+              ``isabel`` 256^3 with ``chunk_z=32`` (8 chunks), its payload
+              byte-equal to the in-memory main-path result of phase 3, its
+              ``StreamReport`` and peak device memory, with the launch
+              counters zeroed just before and read just after (the halo
+              entry launched once per chunk, the plain version never);
+              the sharded engine (4 shards, ``distributed=False``) on
+              ``random`` 128^3 end to end (payload equal to phase 3's) and
+              on ``isabel`` 256^3 front-end only (gradient and keys equal
+              to ``stream_front``'s); and out of core, ``stream_front``
+              over ``FunctionSource.synthetic("random", 512^3)`` with the
+              default 64 MiB chunk budget (critical counts with Euler
+              characteristic 1).  Nothing here is caught.
+5. cpu      — diagrams on the card equal those on the CPU (32^3 wavelet,
               32^3 random, a thin 2-D grid).
-5. timing   — CUDA-event times of ``fused`` and ``prepass`` at 256^3
+6. timing   — CUDA-event times of ``fused`` and ``prepass`` at 256^3
               (``isabel``, ``random``) and 512^3 (``random``) and of the
               plain version at 256^3, each beside its bound (the longer of
               its bytes over 3.35 TB/s and the integer operations the
               pairing needs on this run's data over 33.5 T/s), the pops
-              per vertex and the warp divergence factor of that data.
+              per vertex and the warp divergence factor of that data; and
+              the halo entry per chunk of ``isabel`` 256^3 (int64 keys,
+              ``chunk_z=32``) and over the whole grid, beside its bound
+              (8 B read and 153 B written per owned vertex plus the ghost
+              planes) and the plain version's time on the same chunks.
 
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script prints no result and exits non-zero.
 
-``--timing-of DIR`` runs only phase 5 (without the plain version) on the
+``--timing-of DIR`` runs only phase 6 (without the plain version) on the
 port in another tree DIR, for instance the parent commit unpacked with
 ``git archive`` into a git-ignored directory; it prints no result lines.
 To compare two trees, time them in turns in one call on one card (A, B,
@@ -79,11 +104,13 @@ def nvidia_smi_line():
 # operation and byte counts of one lower-star pairing launch
 # --------------------------------------------------------------------------
 
-def io_bytes(n, rank_bytes, prepass):
+def io_bytes(n, rank_bytes, prepass, ghosts=0):
     """Bytes a pairing launch must move: each input read once (ranks,
-    plus the (n, 27) tensor for the prepass kernel), each output written
-    once (74 + 74 + 1 + 4 B/vertex)."""
-    return n * rank_bytes * (28 if prepass else 1) + n * (74 + 74 + 1 + 4)
+    plus the (n, 27) tensor for the prepass kernel, plus ``ghosts`` ghost
+    keys for the halo entry), each output written once (74 + 74 + 1 + 4
+    B/vertex)."""
+    return (n * rank_bytes * (28 if prepass else 1) + ghosts * rank_bytes
+            + n * (74 + 74 + 1 + 4))
 
 
 def _warp_spread(x):
@@ -181,14 +208,17 @@ def cuda_ms(fn, reps):
 # --------------------------------------------------------------------------
 
 def ptxas_report(log_text):
-    """{ranks: {registers, stack, spill_stores, spill_loads}} of each
-    kernel instantiation in one source's ``ptxas -v`` log."""
+    """{(halo, ranks): {registers, stack, spill_stores, spill_loads}} of
+    each kernel instantiation in one source's ``ptxas -v`` log (``halo``:
+    the fused kernel's halo entry, from the template's bool argument)."""
     import re
     out, cur = {}, None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = "int32" if "IiE" in m.group(1) else "int64"
+            t = re.search(r"I([a-z])(?:Lb([01])E)?E", m.group(1))
+            cur = (t.group(2) == "1",
+                   "int32" if t.group(1) == "i" else "int64")
             out[cur] = {}
         elif cur and "stack frame" in line:
             st, ss, sl = (int(x) for x in re.findall(r"(\d+) bytes", line))
@@ -211,11 +241,15 @@ def phase_build(smi):
         card=repr(smi))
     report = {}
     for name, v in info.items():
-        for ranks, r in ptxas_report(v["log"]).items():
+        for (halo, ranks), r in ptxas_report(v["log"]).items():
+            kname = name + "_halo" if halo else name
             dtype = torch.int32 if ranks == "int32" else torch.int64
-            r.update(LS.kernel_attrs(name, dtype))
-            report[(name, ranks)] = r
-            log("ptxas", kernel=name, ranks=ranks, **r)
+            r.update(LS.kernel_attrs(kname, dtype))
+            report[(kname, ranks)] = r
+            log("ptxas", kernel=kname, ranks=ranks, **r)
+    if len(report) != 6:
+        raise AssertionError(f"expected 6 kernel instantiations, got "
+                             f"{sorted(report)}")
     return report
 
 
@@ -280,6 +314,74 @@ def phase_kernels():
     return max_err
 
 
+def _chunk_ext(keys, c, dims):
+    """The (nzl+2, ny, nx) halo key volume of chunk ``c`` of a field whose
+    (value, vid) keys are ``keys``, as the streaming engine builds it."""
+    from repro_torch.stream.scheduler import _ext_volume
+    plane = dims[0] * dims[1]
+    return _ext_volume(keys[c.glo * plane: c.ghi * plane], c, dims)
+
+
+def phase_halo_kernels(isabel_256):
+    """The fused kernel's halo entry on streamed chunks: bit-equal to the
+    plain version on the same ext volume, and to the whole-grid fused rows
+    of the same slab under ``vertex_order`` (order-isomorphic keys)."""
+    import torch
+    from repro_torch.core.grid import Grid, vertex_order
+    from repro_torch.kernels import lower_star as LS
+    from repro_torch.kernels import ops
+    from repro_torch.stream import pack_value_keys_torch, plan_chunks
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    # (dims, chunk_z, field, chunks): "ends" takes the first, a middle
+    # and the last chunk
+    cases = [((256, 256, 256), 32, "isabel", "ends"),
+             ((64, 48, 40), 8, "normal", "all"),
+             ((33, 17, 9), 9, "normal", "all"),    # one chunk, two -1 ghosts
+             ((40, 30, 20), 1, "normal", "all"),   # nzl = 1
+             ((1, 1, 300), 64, "normal", "all"),   # nx = ny = 1
+             ((129, 7, 5), 2, "normal", "all"),    # ragged tiles
+             ((64, 64, 32), 8, "ties", "all"),     # the vid decides
+             ((48, 40, 24), 6, "positive", "all")]  # keys above 2^62
+    max_err = 0
+    for dims, cz, kind, which in cases:
+        g = Grid.of(*dims)
+        if kind == "isabel":
+            f = torch.from_numpy(isabel_256).cuda()
+        else:
+            f = torch.randn(g.nv, generator=gen, device="cuda")
+            if kind == "ties":
+                f = torch.floor(f * 2)
+            elif kind == "positive":
+                f = f.abs() + 1
+        keys = pack_value_keys_torch(f, 0)
+        if kind == "positive" and int(keys.min()) <= 2 ** 62:
+            raise AssertionError("positive values must give keys > 2^62")
+        whole = LS.fused_lower_star_gradient(g, vertex_order(f))
+        chunks = plan_chunks(g.dims, chunk_z=cz)
+        if which == "ends":
+            chunks = [chunks[0], chunks[len(chunks) // 2], chunks[-1]]
+        plane = g.dims[0] * g.dims[1]
+        for c in chunks:
+            ext = _chunk_ext(keys, c, g.dims)
+            got = LS.fused_rows_from_halo_volume(ext)
+            plain = ops.lower_star_rows_halo(ext, backend="torch")
+            sl = tuple(t[c.zlo * plane: c.zhi * plane] for t in whole)
+            torch.cuda.synchronize()
+            err = max(_rows_equal(got, plain), _rows_equal(got, sl))
+            max_err = max(max_err, err)
+            log("kernels", entry="halo", dims=dims, field=kind,
+                chunk=(c.zlo, c.zhi), ghosts=("data" if c.glo < c.zlo
+                                              else "-1",
+                                              "data" if c.ghi > c.zhi
+                                              else "-1"),
+                keys=(int(ext[1:-1].min()), int(ext.max())),
+                max_abs_err=err)
+            del ext, got, plain, sl
+        del f, keys, whole
+    torch.cuda.empty_cache()
+    return max_err
+
+
 def _check_result(res, grid):
     """Euler characteristic of the critical counts is 1, and every
     critical simplex is in the diagram once (a pair end or a class)."""
@@ -307,7 +409,7 @@ def _stage_line(res):
             if isinstance(v, float)}
 
 
-def phase_main():
+def phase_main(isabel_256):
     import numpy as np
     import torch
     from repro_torch.core.grid import Grid
@@ -319,7 +421,9 @@ def phase_main():
     runs = [("isabel", (256, 256, 256), "fused"),
             ("random", (128, 128, 128), "fused"),
             ("random", (128, 128, 128), "prepass")]
-    fields = {(n, d): make_field(n, d, seed=SEED) for n, d, _ in runs}
+    fields = {(n, d): make_field(n, d, seed=SEED) for n, d, _ in runs
+              if n != "isabel"}
+    fields[("isabel", (256, 256, 256))] = isabel_256
     batch_dims = (64, 64, 64)
     batch = [make_field(n, batch_dims, seed=s)
              for n, s in (("random", 1), ("wavelet", 2), ("magnetic", 3))]
@@ -371,7 +475,145 @@ def phase_main():
                              f"{launches}")
     if plain_on_card:
         raise AssertionError("the plain version ran on the card path")
-    return launches, fields[("isabel", (256, 256, 256))]
+    return launches, fields, {k: r for k, (r, _) in results.items()}
+
+
+def _zero_counts():
+    from repro_torch.kernels import lower_star as LS
+    from repro_torch.kernels import ref
+    for k in LS.LAUNCHES:
+        LS.LAUNCHES[k] = 0
+    ref.CUDA_CALLS["lower_star_gradient_torch"] = 0
+
+
+def _read_counts(n_chunks, what):
+    """The launch counts of a streamed run: the halo entry once per chunk,
+    no other kernel, the plain version never."""
+    import torch
+    from repro_torch.kernels import lower_star as LS
+    from repro_torch.kernels import ref
+    torch.cuda.synchronize()
+    launches = dict(LS.LAUNCHES)
+    plain = ref.CUDA_CALLS["lower_star_gradient_torch"]
+    if launches != {"fused": 0, "prepass": 0, "fused_halo": n_chunks}:
+        raise AssertionError(f"{what}: launches {launches}, want the halo "
+                             f"entry once per chunk ({n_chunks})")
+    if plain:
+        raise AssertionError(f"{what}: the plain version ran on the card")
+    return launches, plain
+
+
+def _report_line(rep):
+    keys = ("n_chunks", "chunk_z", "n_shards", "load_s", "compute_s",
+            "scatter_s", "wall_s", "overlap_s", "comm_s", "comm_hidden_s",
+            "overlap_fraction", "max_chunk_bytes",
+            "peak_resident_field_bytes", "total_loaded_bytes", "key_bytes")
+    return {k: getattr(rep, k) for k in keys}
+
+
+def _same_front(a, b, what):
+    import torch
+    for name in ("pair_up", "pair_down", "crit"):
+        da, db = getattr(a.gf, name), getattr(b.gf, name)
+        if sorted(da) != sorted(db) or not all(
+                torch.equal(da[k], db[k]) for k in da):
+            raise AssertionError(f"{what}: {name} differs")
+    if not torch.equal(a.keys, b.keys):
+        raise AssertionError(f"{what}: keys differ")
+
+
+def phase_stream(fields, results):
+    """The streamed path at full size: ``diagram_stream`` on ``isabel``
+    256^3, the sharded engine, and an out-of-core 512^3 front-end.
+    Returns the halo entry's launches in the ``diagram_stream`` run."""
+    import torch
+    from repro_torch.core.gradient import euler_characteristic
+    from repro_torch.core.grid import Grid
+    from repro_torch.pipeline import PersistencePipeline, TopoRequest
+    from repro_torch.stream import (ArraySource, FunctionSource,
+                                    sharded_stream_front, stream_front)
+    smi = nvidia_smi_line()
+    g = Grid.of(256, 256, 256)
+    isabel = fields[("isabel", g.dims)]
+    src = ArraySource(isabel.reshape(256, 256, 256))
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = PersistencePipeline().diagram_stream(src, chunk_z=32)
+    secs = time.perf_counter() - t0
+    launches, plain = _read_counts(res.stream.n_chunks, "diagram_stream")
+    peak = torch.cuda.max_memory_allocated()
+    rep = res.stream
+    crit = _check_result(res, g)
+    same = res.to_bytes() == results[("isabel", g.dims, "fused")].to_bytes()
+    log("stream", path="diagram_stream", field="isabel", dims=g.dims,
+        seconds=round(secs, 3), critical=crit, launches=launches,
+        plain_on_card=plain, peak_device_bytes=peak,
+        payload_equals_in_memory=same, stages=_stage_line(res),
+        report=_report_line(rep), smi=smi)
+    if rep.n_chunks != 8 or not same:
+        raise AssertionError(f"streamed isabel 256^3: {rep.n_chunks} "
+                             f"chunks, payload equal: {same}")
+    if rep.peak_resident_field_bytes > 2 * rep.max_chunk_bytes:
+        raise AssertionError("more than two chunks of field resident")
+    halo_launches = launches["fused_halo"]
+    del res
+
+    dims = (128, 128, 128)
+    rf = fields[("random", dims)]
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = PersistencePipeline().run(TopoRequest(
+        field=ArraySource(rf.reshape(128, 128, 128)), stream=True,
+        chunk_z=16, n_blocks=4, distributed=False))
+    secs = time.perf_counter() - t0
+    launches, plain = _read_counts(res.stream.n_chunks, "sharded run")
+    same = res.to_bytes() == results[("random", dims, "fused")].to_bytes()
+    log("stream", path="sharded x4 run", field="random", dims=dims,
+        seconds=round(secs, 3), launches=launches, plain_on_card=plain,
+        payload_equals_in_memory=same, stages=_stage_line(res),
+        report=_report_line(res.stream), smi=smi)
+    if res.stream.n_shards != 4 or not same:
+        raise AssertionError("sharded random 128^3 differs from in-memory")
+    del res
+
+    torch.cuda.empty_cache()
+    one = stream_front(src, chunk_z=32)
+    _zero_counts()
+    t0 = time.perf_counter()
+    four = sharded_stream_front(src, 4, chunk_z=32)
+    secs = time.perf_counter() - t0
+    launches, _ = _read_counts(four.report.n_chunks, "sharded front-end")
+    _same_front(four, one, "sharded isabel 256^3 front-end")
+    log("stream", path="sharded_stream_front x4", field="isabel",
+        dims=g.dims, seconds=round(secs, 3), equals_stream_front=True,
+        launches=launches, report=_report_line(four.report),
+        single_shard=_report_line(one.report), smi=smi)
+    del one, four
+    torch.cuda.empty_cache()
+
+    dims = (512, 512, 512)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = stream_front(FunctionSource.synthetic("random", dims, seed=SEED),
+                       chunk_budget=64 << 20)
+    secs = time.perf_counter() - t0
+    launches, _ = _read_counts(out.report.n_chunks, "out-of-core front-end")
+    chi = euler_characteristic(out.gf)
+    log("stream", path="stream_front out of core", field="random",
+        dims=dims, seconds=round(secs, 3), critical=out.gf.n_critical(),
+        euler=chi, launches=launches,
+        peak_device_bytes=torch.cuda.max_memory_allocated(),
+        report=_report_line(out.report), smi=smi)
+    if chi != 1:
+        raise AssertionError(f"512^3 critical Euler characteristic {chi}")
+    del out
+    torch.cuda.empty_cache()
+    return halo_launches
 
 
 def phase_gradient(isabel_256):
@@ -469,7 +711,51 @@ def phase_timing(isabel_256, report, plain=True):
             records["plain_ms"] = plain_ms
         del nb, o, runs
         torch.cuda.empty_cache()
+    if hasattr(LS, "fused_rows_from_halo_volume"):
+        records["fused_halo"] = time_halo(isabel_256, plain, smi)
     return records
+
+
+def time_halo(isabel_256, plain, smi):
+    """CUDA-event times of the halo entry on every chunk of ``isabel``
+    256^3 (int64 keys, ``chunk_z=32``), each beside its bound, and the
+    totals over the grid (and the plain version's, if ``plain``)."""
+    import torch
+    from repro_torch.core.grid import Grid
+    from repro_torch.kernels import lower_star as LS
+    from repro_torch.kernels import ops
+    from repro_torch.stream import pack_value_keys_torch, plan_chunks
+    g = Grid.of(256, 256, 256)
+    keys = pack_value_keys_torch(torch.from_numpy(isabel_256).cuda(), 0)
+    plane = g.dims[0] * g.dims[1]
+    tot = dict(ms=0.0, plain_ms=0.0 if plain else None, bytes=0, ops=0)
+    for c in plan_chunks(g.dims, chunk_z=32):
+        ext = _chunk_ext(keys, c, g.dims)
+        out = LS.fused_rows_from_halo_volume(ext)
+        work = pairing_work(out[0], out[2])
+        del out
+        work["bytes"] = io_bytes(c.nz * plane, 8, False, ghosts=2 * plane)
+        ms = cuda_ms(lambda: LS.fused_rows_from_halo_volume(ext), reps=5)
+        bms, by = bound_ms(work)
+        pms = cuda_ms(lambda: ops.lower_star_rows_halo(ext, "torch"),
+                      reps=1) if plain else None
+        log("timing", kernel="fused_halo", field="isabel", dims=g.dims,
+            chunk=(c.zlo, c.zhi), ms=ms, bound_ms=bms, bound_by=by,
+            bytes=work["bytes"], ops=work["ops"], plain_ms=pms,
+            pops_per_vertex=work["pops_per_vertex"],
+            divergence_regrouped=work["divergence_regrouped"], smi=smi)
+        tot["ms"] += ms
+        tot["bytes"] += work["bytes"]
+        tot["ops"] += work["ops"]
+        if plain:
+            tot["plain_ms"] += pms
+        del ext
+    tot["bound_ms"], tot["bound_by"] = bound_ms(tot)
+    log("timing", kernel="fused_halo", field="isabel", dims=g.dims,
+        chunks="all", **tot, smi=smi)
+    del keys
+    torch.cuda.empty_cache()
+    return tot
 
 
 def time_tree(root):
@@ -512,10 +798,15 @@ def main(argv):
     log("device", name=torch.cuda.get_device_name(0),
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda)
+    from repro_torch.fields.generators import make_field
+    isabel = make_field("isabel", (256, 256, 256), seed=SEED)
     report = phase_build(smi)
     max_err = phase_kernels()
-    launches, isabel = phase_main()
+    halo_err = phase_halo_kernels(isabel)
+    launches, fields, results = phase_main(isabel)
     phase_gradient(isabel)
+    halo_launches = phase_stream(fields, results)
+    del results
     phase_cpu()
     rec = phase_timing(isabel, report)
     kernels = []
@@ -530,6 +821,14 @@ def main(argv):
             "ms": r["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
+    r = rec["fused_halo"]
+    kernels.append({
+        "name": "fused_lower_star_halo", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused.cu",
+        "replaces": "src/repro/kernels/lower_star.py:325",
+        "launches": halo_launches, "max_abs_err": halo_err,
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": None})
     log("done", seconds=round(time.perf_counter() - t_start, 1))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -15,7 +15,8 @@ ProcessLowerStars); the pairing itself lives in ``repro_torch.kernels``
   with :func:`gradient_from_numpy` / :meth:`GradientField.to_numpy` to
   carry a gradient across from (and back to) numpy;
 - :func:`scatter_results_batch`, packed rows -> GradientFields by flat
-  index arithmetic on the device;
+  index arithmetic on the device, and its chunked form for streamed runs
+  (:func:`alloc_gradient` + :func:`scatter_rows_chunk`);
 - :func:`check_gradient_valid`, the discrete-vector-field checks.
 """
 
@@ -227,6 +228,72 @@ def scatter_results_batch(grid: Grid, status: torch.Tensor,
         {k: v[b * space[k]:(b + 1) * space[k]] for k, v in pair_down.items()},
         {k: v[b * space[k]:(b + 1) * space[k]] for k, v in crit.items()})
         for b in range(B)]
+
+
+def alloc_gradient(grid: Grid, device="cpu") -> GradientField:
+    """Empty dense gradient arrays on ``device`` for the chunked scatter.
+
+    Every pair entry starts -1 and every critical flag False; chunk
+    scatters (:func:`scatter_rows_chunk`) fill them in.  Dtypes match
+    :func:`scatter_results_batch`, so streamed and in-memory fields are
+    alike."""
+    d = grid.dim
+    space = {k: grid.sid_space(k) for k in range(d + 1)}
+    return GradientField(
+        grid,
+        {k: torch.full((space[k],), -1, dtype=sid_dtype(grid, k + 1),
+                       device=device) for k in range(d)},
+        {k: torch.full((space[k],), -1, dtype=sid_dtype(grid, k - 1),
+                       device=device) for k in range(1, d + 1)},
+        {k: torch.zeros(space[k], dtype=torch.bool, device=device)
+         for k in range(d + 1)})
+
+
+def scatter_rows_chunk(grid: Grid, gf: GradientField, status: torch.Tensor,
+                       partner: torch.Tensor, vstatus: torch.Tensor,
+                       vpartner: torch.Tensor, v0: int,
+                       offsets: Optional[Dict[int, torch.Tensor]] = None
+                       ) -> None:
+    """Scatter the packed rows of one vertex chunk into ``gf`` in place.
+
+    status/partner are (nc, 74) for the vertices [v0, v0 + nc) in vid
+    order (a z-slab), on ``gf``'s device; the scatter is flat index
+    arithmetic there, so the rows never leave it.  A simplex belongs to
+    the lower star of exactly one vertex (its order-maximal one), so
+    chunks write disjoint sids, and scattering the chunks in any order
+    rebuilds the single-shot :func:`scatter_results_batch` result; a
+    simplex based in a neighbouring slab (a row shift across the chunk's
+    floor) lands there through the same arithmetic."""
+    off = row_sid_offsets(grid, status.device) if offsets is None \
+        else offsets
+    d = grid.dim
+    nc = vstatus.shape[0]
+    gf.crit[0][v0:v0 + nc] = vstatus == CRIT
+    vv = torch.nonzero(vstatus == TAIL).reshape(-1)
+    if d >= 1 and len(vv):
+        vg = vv + v0
+        es = vg * G.NTYPES[1] + off[1][vpartner[vv].long()]
+        gf.pair_up[0][vg] = es.to(gf.pair_up[0].dtype)
+        gf.pair_down[1][es] = vg.to(gf.pair_down[1].dtype)
+
+    for k in range(1, d + 1):
+        st = status[:, ROW_OFF[k]: ROW_OFF[k] + G.NSTAR[k]]   # (nc, S_k)
+        vs, rs = torch.nonzero(st == CRIT, as_tuple=True)
+        if len(vs):
+            gf.crit[k][(vs + v0) * G.NTYPES[k] + off[k][rs]] = True
+        vs, rs = torch.nonzero(st == HEAD, as_tuple=True)
+        if not len(vs):
+            continue
+        p = partner[vs, ROW_OFF[k] + rs].long()
+        if k == 1:
+            if not bool((p == -2).all()):
+                raise ValueError("a dim-1 head row must pair with its vertex")
+            continue
+        head_sid = (vs + v0) * G.NTYPES[k] + off[k][rs]
+        face_sid = (vs + v0) * G.NTYPES[k - 1] \
+            + off[k - 1][p - ROW_OFF[k - 1]]
+        gf.pair_down[k][head_sid] = face_sid.to(gf.pair_down[k].dtype)
+        gf.pair_up[k - 1][face_sid] = head_sid.to(gf.pair_up[k - 1].dtype)
 
 
 # --------------------------------------------------------------------------

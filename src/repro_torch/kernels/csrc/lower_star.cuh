@@ -294,6 +294,60 @@ LS_HD void pair_lower_star(const uint32_t (&rk)[NE], const Tables& tb,
   }
 }
 
+// Where a launch's vertices and their star neighbours lie in its source
+// tensor.  Whole grid: vertex g is element g of a (B, nz, ny, nx) tensor,
+// and a neighbour outside [0, nx) x [0, ny) x [0, nz) of its own member
+// is -1.  Halo: vertex g is owned vertex g of an (nz + 2, ny, nx) ext
+// volume whose first and last planes are ghosts, so it lies at g + nx*ny
+// there; its z neighbours always lie in the ext volume (a ghost that is
+// -1, at the grid's boundary, already reads as outside), so only x and y
+// are tested.
+struct Addr {
+  long long base;   // source index of vertex 0
+  long long n_src;  // elements of the source tensor
+  int nx, ny, nz;   // nz: planes of one member (whole) or owned (halo)
+  bool halo;
+
+  LS_HD static Addr whole(long long B, int nz, int ny, int nx) {
+    return Addr{0, B * nz * ny * nx, nx, ny, nz, false};
+  }
+  LS_HD static Addr ext(int nz_owned, int ny, int nx) {
+    const long long nxy = (long long)nx * ny;
+    return Addr{nxy, (nz_owned + 2) * nxy, nx, ny, nz_owned, true};
+  }
+  // (x, y, z) of vertex g within its member (or its owned slab)
+  LS_HD void coords(long long g, int& x, int& y, int& z) const {
+    const unsigned nxy = (unsigned)nx * (unsigned)ny;
+    // one 64-bit division for the batch member, the rest in 32 bits
+    const unsigned v = (unsigned)(g % ((long long)nxy * nz));
+    x = (int)(v % (unsigned)nx);
+    y = (int)(v / (unsigned)nx % (unsigned)ny);
+    z = (int)(v / nxy);
+  }
+  LS_HD bool inside(int x, int y, int z, int dx, int dy, int dz) const {
+    return x + dx >= 0 && x + dx < nx && y + dy >= 0 && y + dy < ny &&
+           (halo || (z + dz >= 0 && z + dz < nz));
+  }
+};
+
+// The vertex's order and the orders of its 14 edge neighbours (-1
+// outside), read straight from the source tensor.  The fused kernel reads
+// the same elements from its shared-memory window; this form keeps the
+// addressing testable on the host.
+template <typename T>
+LS_HD void gather_edges(const T* src, const Addr& a, long long g,
+                        T (&nb)[NE], T& ov) {
+  int x, y, z;
+  a.coords(g, x, y, z);
+  const long long nxy = (long long)a.nx * a.ny, s = a.base + g;
+  ov = src[s];
+#define LS_X(e, j, dx, dy, dz)                                          \
+  nb[e] = a.inside(x, y, z, dx, dy, dz)                                 \
+              ? src[s + (dz) * nxy + (dy) * (long long)a.nx + (dx)] : T(-1);
+  LS_EDGES(LS_X)
+#undef LS_X
+}
+
 // Ranks packed four bits each (they are at most 14), edge e at bits 4e.
 LS_HD uint64_t pack_ranks(const uint32_t (&rk)[NE]) {
   uint64_t p = 0;

@@ -10,8 +10,13 @@
   ``_prepass_call``, ``lower_star.py:170``): the same pairing over an
   (n, 27) neighbour tensor gathered beforehand with
   :func:`repro_torch.core.gradient.neighbor_orders`; the cross-check.
+- :func:`fused_rows_from_halo_volume` — the halo entry of ``csrc/fused.cu``
+  (replaces ``fused_rows_from_halo_volume``, ``lower_star.py:325``): the
+  rows of the owned planes of one z-slab's (nzl+2, ny, nx) key volume
+  whose first and last planes are ghosts; the streaming engines
+  (``repro_torch.stream``) launch it once per chunk.
 
-Both return packed rows: status (n, 74) int8, partner (n, 74) int8,
+All return packed rows: status (n, 74) int8, partner (n, 74) int8,
 vstat (n,) int8, vpart (n,) int32.  On tensors that lie on the CPU the
 wrappers run the plain version (:func:`.ref.lower_star_gradient_torch`);
 on CUDA tensors they launch the kernel on the current stream or raise —
@@ -22,6 +27,7 @@ there is no fallback.  ``LAUNCHES`` counts kernel launches;
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -30,15 +36,27 @@ from repro_torch.core.grid import Grid
 from . import build
 from .ref import R, lower_star_gradient_torch
 
-# kernel launches per wrapper; chip_smoke.py zeroes and reads these
-LAUNCHES = {"fused": 0, "prepass": 0}
+# kernel launches per wrapper; chip_smoke.py zeroes and reads these.  The
+# sharded streaming engine launches from several threads, so counts go
+# through _count.
+LAUNCHES = {"fused": 0, "prepass": 0, "fused_halo": 0}
+_LAUNCH_LOCK = threading.Lock()
+
+
+def _count(name: str) -> None:
+    with _LAUNCH_LOCK:
+        LAUNCHES[name] += 1
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
     "ls_fused": [_P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                  ctypes.c_int, _P, _P, _P, _P, _P],
     "ls_prepass": [_P, _P, ctypes.c_longlong, _P, _P, _P, _P, _P],
+    "ls_fused_halo": [_P, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                      _P, _P, _P, _P, _P],
 }
+# kernel name -> the library (csrc/<name>.cu) that holds it
+_LIBRARY = {"fused": "fused", "prepass": "prepass", "fused_halo": "fused"}
 
 
 _SUFFIX = {torch.int32: "i32", torch.int64: "i64"}
@@ -52,10 +70,11 @@ def _cfun(lib_name: str, fn: str, dtype: torch.dtype):
 
 
 def kernel_attrs(name: str, dtype: torch.dtype) -> dict:
-    """Launch shape and resources of kernel ``name`` ("fused" or
-    "prepass") for int32 or int64 ranks, as the CUDA runtime reports
+    """Launch shape and resources of kernel ``name`` ("fused", "prepass"
+    or "fused_halo") for int32 or int64 ranks, as the CUDA runtime reports
     them (builds the kernel at first use; needs a CUDA device)."""
-    f = getattr(build.library(name), f"ls_{name}_attrs_{_SUFFIX[dtype]}")
+    f = getattr(build.library(_LIBRARY[name]),
+                f"ls_{name}_attrs_{_SUFFIX[dtype]}")
     f.argtypes = [_P]
     f.restype = ctypes.c_int
     out = (ctypes.c_int * 6)()
@@ -115,7 +134,7 @@ def fused_lower_star_gradient(grid: Grid, orders: torch.Tensor, *,
             o.data_ptr(), B, nz, ny, nx, *(t.data_ptr() for t in outs),
             stream)
     _raise_on(err, "fused")
-    LAUNCHES["fused"] += 1
+    _count("fused")
     return outs
 
 
@@ -144,5 +163,44 @@ def lower_star_gradient_prepass(nbrs: torch.Tensor, ov: torch.Tensor, *,
             nbrs.data_ptr(), ov.data_ptr(), n,
             *(t.data_ptr() for t in outs), stream)
     _raise_on(err, "prepass")
-    LAUNCHES["prepass"] += 1
+    _count("prepass")
+    return outs
+
+
+def halo_owned_neighbors(ext: torch.Tensor):
+    """(nbrs (nzl*ny*nx, 27), ov (nzl*ny*nx,)) of the owned vertices of a
+    (nzl+2, ny, nx) ext volume: the stencil gather over the ext grid, with
+    the two ghost planes' rows dropped."""
+    nzh, ny, nx = ext.shape
+    nbrs = neighbor_orders(Grid.of(nx, ny, nzh), ext.reshape(-1))
+    return (nbrs.reshape(nzh, ny * nx, 27)[1:-1].reshape(-1, 27),
+            ext[1:-1].reshape(-1))
+
+
+def fused_rows_from_halo_volume(ext: torch.Tensor, *,
+                                rank_bound: int | None = None):
+    """Fused gather + pairing for the owned planes of one z-slab.
+
+    ext: (nzl+2, ny, nx) order or key volume whose first and last planes
+    are ghosts (the neighbouring slab's keys, -1 at the grid's boundary).
+    Rank-free (value, vid) keys stay int64 with ``rank_bound=None``.
+    Returns packed rows of the nzl*ny*nx owned vertices in vid order."""
+    if ext.dim() != 3 or ext.shape[0] < 3:
+        raise ValueError(f"expected an (nzl+2, ny, nx) volume with nzl >= 1, "
+                         f"got {tuple(ext.shape)}")
+    ext = _maybe_int32(ext, rank_bound)
+    if ext.device.type == "cpu":
+        nbrs, ov = halo_owned_neighbors(ext)
+        return lower_star_gradient_torch(nbrs, ov, rank_bound)
+    ext = ext.contiguous()
+    _check_cuda(ext)
+    nzh, ny, nx = ext.shape
+    outs = _outputs((nzh - 2) * ny * nx, ext.device)
+    with torch.cuda.device(ext.device):
+        stream = torch.cuda.current_stream(ext.device).cuda_stream
+        err = _cfun("fused", "ls_fused_halo", ext.dtype)(
+            ext.data_ptr(), nzh - 2, ny, nx, *(t.data_ptr() for t in outs),
+            stream)
+    _raise_on(err, "fused halo")
+    _count("fused_halo")
     return outs

@@ -10,6 +10,8 @@
   whatever device the ranks are on.
 
 On CPU tensors the two kernel wrappers run the plain version themselves.
+:func:`rows_batch` takes whole grids; :func:`lower_star_rows_halo` takes
+the halo-extended key volume of one z-slab (the streaming entry).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from repro_torch.core.gradient import NROWS, neighbor_orders
 from repro_torch.core.grid import Grid
 from .lower_star import (_maybe_int32, fused_lower_star_gradient,
+                         fused_rows_from_halo_volume, halo_owned_neighbors,
                          lower_star_gradient_prepass)
 from .ref import lower_star_gradient_torch
 
@@ -67,3 +70,21 @@ def lower_star_gradient(grid: Grid, order: torch.Tensor,
                         backend: str = "fused"):
     """Per-vertex packed gradient rows of one field."""
     return rows_batch(grid, order.reshape(1, -1), backend)
+
+
+def lower_star_rows_halo(ext: torch.Tensor, backend: str = "fused"):
+    """Packed gradient rows for one halo-extended z-slab (streaming entry).
+
+    ``ext`` is a chunk's (nzl+2, ny, nx) key volume with its ghost planes
+    (-1 outside the grid); the rows are those of its owned planes.  Keys
+    are rank-free int64 words, so every path runs with ``rank_bound=None``
+    (no int32 narrowing, no packed keys in the plain version)."""
+    if backend == "fused":
+        return fused_rows_from_halo_volume(ext, rank_bound=None)
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown streaming backend {backend!r}; expected "
+                         f"{BACKENDS}")
+    nbrs, ov = halo_owned_neighbors(ext)
+    if backend == "prepass":
+        return lower_star_gradient_prepass(nbrs, ov, rank_bound=None)
+    return lower_star_gradient_torch(nbrs, ov, rank_bound=None)

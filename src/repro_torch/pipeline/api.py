@@ -13,6 +13,13 @@ to a :class:`Plan`, grouped by plan and field shape, and each group runs
 the front-end (order, then ONE batched lower-star rows launch over the
 (B, nv) stack, then the scatter) before the per-request back-end
 (critical extraction, D0, dual, D1).  A single ``run`` is a group of one.
+
+Streamed requests (a :class:`~repro_torch.stream.FieldSource` field, or
+``stream=True``; ``diagram_stream`` is the shim) take the out-of-core
+path instead: the chunked front-end on rank-free (value, vid) keys
+(``repro_torch.stream``; ``n_blocks > 1`` with ``distributed=False``
+runs the sharded engine), the back-end on the dense key tensor as the
+order, and exact ranks only for the vertices the diagram touches.
 """
 
 from __future__ import annotations
@@ -23,9 +30,11 @@ from typing import List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from repro_torch.core.diagram import Diagram
 from repro_torch.core.gradient import scatter_results_batch
 
-from .backends import Backend, get_backend, get_sandwich_backend
+from .backends import (Backend, available_backends, get_backend,
+                       get_sandwich_backend)
 from .plan import Plan, PlanCache
 from .request import TopoRequest, strip_field
 from .result import DiagramResult
@@ -113,13 +122,24 @@ class PersistencePipeline:
             else tuple(range(g.dim + 1))
         backend = req.backend if req.backend is not None \
             else self.backend.name
-        self._get_backend(backend)
+        be = self._get_backend(backend)
         sandwich = get_sandwich_backend(
             req.sandwich_backend or self.sandwich.name).name
+        streamed = req.is_stream
+        if streamed and not be.caps.streamed:
+            ok = sorted(n for n, b in available_backends().items()
+                        if b.caps.streamed)
+            raise ValueError(
+                f"backend {backend!r} has no streamed kernel; "
+                f"streaming backends: {ok}")
+        front = ("gradient", "extract_sort") if streamed \
+            else tuple(st.name for st in FRONT_STAGES)
         return Plan(dims=g.dims, backend=backend, sandwich_backend=sandwich,
                     device=str(self.device), homology_dims=hdims,
-                    stage_names=tuple(st.name for st in FRONT_STAGES)
-                    + _back_stage_names(g.dim, hdims))
+                    stage_names=front + _back_stage_names(g.dim, hdims),
+                    streamed=streamed, chunk_z=req.chunk_z,
+                    chunk_budget=req.chunk_budget,
+                    n_blocks=req.n_blocks or 1)
 
     # -- run -------------------------------------------------------------
 
@@ -127,7 +147,10 @@ class PersistencePipeline:
             grid=None, **options) -> DiagramResult:
         """Execute one request end to end."""
         req = self._as_request(request, grid, **options).resolve()
-        return self._run_group([req], self._lower_resolved(req))[0]
+        plan = self._lower_resolved(req)
+        if plan.streamed:
+            return self._run_stream(req, plan)
+        return self._run_group([req], plan)[0]
 
     def run_batch(self, requests: Sequence) -> List[DiagramResult]:
         """Execute a batch: same-plan, same-shape requests share one
@@ -139,8 +162,13 @@ class PersistencePipeline:
             groups.setdefault((plan.key, req.field_shape), []).append(i)
         out: List[Optional[DiagramResult]] = [None] * len(reqs)
         for idxs in groups.values():
+            plan = plans[idxs[0]]
+            if plan.streamed:
+                for i in idxs:
+                    out[i] = self._run_stream(reqs[i], plan)
+                continue
             for i, res in zip(idxs, self._run_group([reqs[i] for i in idxs],
-                                                    plans[idxs[0]])):
+                                                    plan)):
                 out[i] = res
         return out
 
@@ -183,12 +211,92 @@ class PersistencePipeline:
         for req, state, report in zip(reqs, states, reports):
             run_stages(state, cfg, report, stages=rest)
             f = state.f
-            res = DiagramResult(
-                state.diagram(), report.flat(),
-                report if req.include_report else None,
-                request=strip_field(req), plan=plan,
-                _values_fn=(lambda vids, f=f: f[vids]) if f.numel() else None)
-            res.arrays()
-            res._values_fn = None
-            out.append(res)
+            out.append(self._finish(
+                state.diagram(), report, req, plan,
+                values_fn=(lambda vids, f=f: f[vids]) if f.numel() else None))
         return out
+
+    @staticmethod
+    def _finish(diagram, report: StageReport, req: TopoRequest, plan: Plan,
+                values_fn=None, stream=None) -> DiagramResult:
+        res = DiagramResult(
+            diagram, report.flat(), report if req.include_report else None,
+            stream=stream, request=strip_field(req), plan=plan,
+            _values_fn=values_fn)
+        # materialize the canonical query arrays now (tiny — critical
+        # simplices only) so the result does not pin the field or the
+        # dense key tensor for its lifetime
+        res.arrays()
+        res._values_fn = None
+        return res
+
+    def _source(self, req: TopoRequest):
+        """The request's field as a FieldSource (arrays and tensors are
+        wrapped in an ArraySource with the request's grid dims)."""
+        from repro_torch.stream import as_source
+        f = req.field
+        if isinstance(f, torch.Tensor):
+            f = f.detach().cpu().numpy()
+        return as_source(f, dims=req.grid.dims)
+
+    def _run_stream(self, req: TopoRequest, plan: Plan) -> DiagramResult:
+        """Out-of-core path: chunked front-end on rank-free keys (the fused
+        kernel's halo entry per chunk), back-end on the dense key tensor as
+        the order, SparseOrder rank recovery.  ``n_blocks > 1`` selects the
+        sharded streaming engine; output stays bit-identical."""
+        from repro_torch.stream import (SparseOrder, diagram_vertices,
+                                        sharded_stream_front, stream_front)
+        cfg = _Config(self._get_backend(plan.backend),
+                      get_sandwich_backend(plan.sandwich_backend))
+        src = self._source(req)
+        grid = req.grid
+        chunk_z, chunk_budget = plan.chunk_z, plan.chunk_budget
+        if chunk_z is None and chunk_budget is None:
+            chunk_budget = 64 << 20
+        report = StageReport("pipeline")
+
+        with report.stage("gradient") as rep:
+            if plan.n_blocks > 1:
+                out = sharded_stream_front(
+                    src, plan.n_blocks, kernel=plan.backend,
+                    chunk_z=chunk_z, chunk_budget=chunk_budget,
+                    stage_report=rep, device=self.device)
+            else:
+                out = stream_front(src, kernel=plan.backend, chunk_z=chunk_z,
+                                   chunk_budget=chunk_budget,
+                                   stage_report=rep, device=self.device)
+            n_crit = out.gf.n_critical()
+            rep.count(n_critical=sum(n_crit.values()),
+                      **{f"n_critical_d{k}": v for k, v in n_crit.items()})
+
+        # the back-end compares orders, never their absolute values, so
+        # the dense key tensor stands in for the vertex order verbatim
+        state = PipelineState(grid, torch.zeros(0, device=self.device),
+                              order=out.keys, gf=out.gf)
+        run_stages(state, cfg, report,
+                   stages=tuple(_STAGES_BY_NAME[n]
+                                for n in plan.stage_names[1:]))
+
+        # exact global ranks, but only for the vertices the diagram
+        # touches (a counting pass per slab — still no global argsort)
+        with report.stage("rank_translate"):
+            order = SparseOrder.from_keys(
+                out.keys, diagram_vertices(grid, state.pairs,
+                                           state.essential))
+        return self._finish(
+            Diagram(grid, order, state.pairs, state.essential), report, req,
+            plan, stream=out.report, values_fn=out.values_for_vids)
+
+    def diagram_stream(self, source, *, chunk_z: Optional[int] = None,
+                       chunk_budget: Optional[int] = None) -> DiagramResult:
+        """Persistence diagram of a field served chunk by chunk (shim over
+        ``run`` with ``stream=True``).
+
+        ``source`` is a :class:`repro_torch.stream.FieldSource` (in-memory
+        array, ``np.memmap`` file, or on-demand generator) — the field is
+        never materialized as one array; at most ~2 chunks of field data
+        are resident (``result.stream`` accounts for it).  Output is
+        bit-identical to :meth:`run` on the same field."""
+        return self.run(TopoRequest(field=source, stream=True,
+                                    chunk_z=chunk_z,
+                                    chunk_budget=chunk_budget))

@@ -3,7 +3,9 @@
 PyTorch counterpart of ``repro.pipeline.backends``.
 
 Gradient backends (a :class:`Backend` bundles ``rows(grid, orders (B, nv))
--> packed rows`` and derives ``gradient(grid, order) -> GradientField``):
+-> packed rows`` and derives ``gradient(grid, order) -> GradientField``;
+its :class:`BackendCaps` say what else it offers — ``streamed``: a kernel
+for one halo-extended z-slab, ``kernels.ops.lower_star_rows_halo``):
 
 - ``fused``   — the fused CUDA lower-star kernel (default);
 - ``prepass`` — the (nv, 27) gather + the prepass CUDA kernel;
@@ -16,7 +18,7 @@ of the reference's batched ``jax`` back-end (``kernels.sandwich``).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict
 
 import torch
@@ -40,12 +42,20 @@ class UnknownSandwichBackendError(KeyError):
 
 
 @dataclass(frozen=True)
+class BackendCaps:
+    """What a gradient backend offers beyond whole-grid rows."""
+
+    streamed: bool = False   # kernel takes per-chunk halo key volumes
+
+
+@dataclass(frozen=True)
 class Backend:
     """One gradient front-end behind the common protocol."""
 
     name: str
     rows: Callable[[Grid, torch.Tensor], tuple]   # (grid, orders (B, nv))
     description: str = ""
+    caps: BackendCaps = field(default_factory=BackendCaps)
 
     def gradient(self, grid: Grid, order: torch.Tensor) -> GradientField:
         [gf] = GR.scatter_results_batch(grid, *self.rows(grid, order[None]))
@@ -117,13 +127,13 @@ def _rows(kernel: str) -> Callable:
 
 
 register_backend(Backend(
-    name="fused", rows=_rows("fused"),
+    name="fused", rows=_rows("fused"), caps=BackendCaps(streamed=True),
     description="fused gather + pairing CUDA kernel (csrc/fused.cu)"))
 register_backend(Backend(
-    name="prepass", rows=_rows("prepass"),
+    name="prepass", rows=_rows("prepass"), caps=BackendCaps(streamed=True),
     description="(nv, 27) gather + prepass CUDA kernel (csrc/prepass.cu)"))
 register_backend(Backend(
-    name="torch", rows=_rows("torch"),
+    name="torch", rows=_rows("torch"), caps=BackendCaps(streamed=True),
     description="(nv, 27) gather + plain PyTorch pairing"))
 
 register_sandwich_backend(SandwichBackend(

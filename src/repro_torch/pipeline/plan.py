@@ -2,8 +2,9 @@
 
 PyTorch counterpart of ``repro.pipeline.plan``.
 ``PersistencePipeline.lower(request)`` resolves a request into a
-:class:`Plan`: backend, sandwich back-end, device and the exact stage
-chain (stages whose outputs the request does not ask for are dropped).
+:class:`Plan`: backend, sandwich back-end, device, in-memory or streamed
+execution (chunking, shards) and the exact stage chain (stages whose
+outputs the request does not ask for are dropped).
 Plans are frozen, hashable and inspectable (``describe()``).
 
 PyTorch runs eagerly, so there is no compiled program to bind; the only
@@ -16,7 +17,7 @@ from __future__ import annotations
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 from repro_torch.core.gradient import row_sid_offsets
 from repro_torch.core.grid import Grid
@@ -53,11 +54,16 @@ class Plan:
     device: str                           # torch device string
     homology_dims: Tuple[int, ...] = ()
     stage_names: Tuple[str, ...] = ()
+    streamed: bool = False
+    chunk_z: Optional[int] = None
+    chunk_budget: Optional[int] = None
+    n_blocks: int = 1                     # z-slab shards (streamed only)
 
     @property
     def key(self) -> tuple:
         return (self.dims, self.backend, self.sandwich_backend, self.device,
-                self.homology_dims)
+                self.homology_dims, self.streamed, self.chunk_z,
+                self.chunk_budget, self.n_blocks)
 
     @property
     def grid(self) -> Grid:
@@ -65,9 +71,20 @@ class Plan:
 
     def describe(self) -> str:
         """Human-readable one-plan summary."""
+        if self.streamed and self.n_blocks > 1:
+            # the composed engine: every shard streams its z-slab, the
+            # boundary-plane halo exchange is double-buffered against
+            # chunk compute
+            mode = (f"sharded-streamed x{self.n_blocks} "
+                    f"(overlapped halo exchange)")
+        elif self.streamed:
+            mode = "streamed"
+        else:
+            mode = "in-memory"
         return (f"Plan(dims={self.dims}, backend={self.backend!r}, "
-                f"in-memory on {self.device}, "
+                f"{mode} on {self.device}, sequential back-end, "
                 f"sandwich={self.sandwich_backend!r}, "
+                f"n_blocks={self.n_blocks}, "
                 f"homology_dims={self.homology_dims}, "
                 f"stages={' -> '.join(self.stage_names)})")
 

@@ -1,9 +1,11 @@
 """`TopoRequest` — the declarative front door of the pipeline.
 
 PyTorch counterpart of ``repro.pipeline.request``.  One frozen spec: the
-field (numpy array or torch tensor, flat or ``(nz, ny, nx)``), the grid,
-the homology dimensions, result simplification (``min_persistence`` /
-``top_k``) and execution options (``backend`` / ``sandwich_backend``).
+field (numpy array or torch tensor, flat or ``(nz, ny, nx)``, or an
+out-of-core :class:`~repro_torch.stream.FieldSource`), the grid, the
+homology dimensions, result simplification (``min_persistence`` /
+``top_k``) and execution options (``backend`` / ``sandwich_backend`` /
+streaming chunking / ``n_blocks`` for the sharded streaming engine).
 
 The reference's options for later parts of the port are kept as fields
 so requests read the same, but :meth:`TopoRequest.resolve` raises
@@ -25,31 +27,40 @@ from repro_torch.core.grid import Grid
 
 # option -> the ROADMAP.md item that ports it
 _LATER = {
-    "stream": "Queue 1 item 6 (streaming)",
-    "chunk_z": "Queue 1 item 6 (streaming)",
-    "chunk_budget": "Queue 1 item 6 (streaming)",
     "epsilon": "Queue 1 item 7 (approximation)",
     "deadline_s": "Queue 1 item 7 (approximation)",
     "progressive": "Queue 1 item 7 (approximation)",
     "cache": "Queue 1 item 8 (host-side services: cache/)",
-    "trace": "Queue 1 item 8 (host-side services: obs/)",
-    "n_blocks": "Queue 1 item 9 (distributed engines)",
+    "trace": "Queue 1 item 8 (host-side services: obs/ exposition and "
+             "per-run traces)",
     "distributed": "Queue 1 item 9 (distributed engines)",
+    "n_blocks": "Queue 1 item 9 (distributed engines)",
 }
 
 
+def _is_source(field) -> bool:
+    """True for FieldSource-shaped objects that are not plain arrays."""
+    if isinstance(field, (np.ndarray, torch.Tensor)):
+        return False
+    return hasattr(field, "read_slab") and hasattr(field, "dims")
+
+
 def _shape(field) -> tuple:
+    if _is_source(field):
+        return ("stream",) + tuple(field.dims)
     if isinstance(field, torch.Tensor):
         return tuple(field.shape)
     return np.shape(field)
 
 
 def resolve_grid(field, grid: Optional[Grid] = None) -> Grid:
-    """An explicit ``grid`` wins; a shaped field infers ``dims =
-    shape[::-1]`` (index order is ``[z, y, x]``); a flat field cannot be
-    inferred."""
+    """An explicit ``grid`` wins; a :class:`FieldSource` carries its own
+    ``dims``; a shaped field infers ``dims = shape[::-1]`` (index order is
+    ``[z, y, x]``); a flat field cannot be inferred."""
     if grid is not None:
         return grid
+    if _is_source(field):
+        return Grid.of(*field.dims)
     shape = _shape(field)
     if len(shape) > 1:
         return Grid.of(*shape[::-1])
@@ -62,13 +73,22 @@ def resolve_grid(field, grid: Optional[Grid] = None) -> Grid:
 class TopoRequest:
     """Declarative persistence-diagram request (frozen spec).
 
-    field : numpy array or torch tensor, flat or ``(nz, ny, nx)``.
+    field : numpy array or torch tensor, flat or ``(nz, ny, nx)``, or a
+        ``FieldSource`` (out-of-core; implies the streamed path).
     grid : explicit :class:`Grid`; inferred by :meth:`resolve` if None.
     homology_dims : homology dimensions to compute (None = all); back-end
         stages whose outputs are not requested are dropped.
     min_persistence, top_k : default simplification applied by
         :meth:`DiagramResult.pairs` when the caller passes no override.
     backend, sandwich_backend : ``None`` inherits the pipeline default.
+    stream : force (True) / forbid (False) the out-of-core path; ``None``
+        streams iff the field is a source or a chunk knob is set.
+    chunk_z, chunk_budget : streamed decomposition knobs (at most one);
+        in a sharded streamed run they apply per shard.
+    n_blocks : z-slab shards of the sharded streaming engine; ``> 1`` is
+        taken only by a streamed request with ``distributed=False`` (the
+        reference reads ``n_blocks > 1`` with ``distributed`` unset as a
+        request for the distributed engines, which come later).
     include_report : attach the :class:`StageReport` to the result.
     The remaining fields belong to later parts of the port (see
     ``_LATER``) and must stay unset.
@@ -95,12 +115,23 @@ class TopoRequest:
 
     def __post_init__(self):
         if self.field is None:
-            raise TypeError("TopoRequest needs a field; got None")
+            raise TypeError("TopoRequest needs a field (array, tensor or "
+                            "FieldSource); got None")
         if self.min_persistence is not None and self.min_persistence < 0:
             raise ValueError(
                 f"min_persistence must be >= 0, got {self.min_persistence}")
         if self.top_k is not None and self.top_k < 1:
             raise ValueError(f"top_k must be >= 1, got {self.top_k}")
+        if self.n_blocks is not None and self.n_blocks < 1:
+            raise ValueError(f"n_blocks must be >= 1, got {self.n_blocks}")
+        if self.chunk_z is not None and self.chunk_budget is not None:
+            raise ValueError(
+                "pass at most one of chunk_z= / chunk_budget=")
+        if self.chunk_z is not None and self.chunk_z < 1:
+            raise ValueError(f"chunk_z must be >= 1, got {self.chunk_z}")
+        if self.chunk_budget is not None and self.chunk_budget < 1:
+            raise ValueError(
+                f"chunk_budget must be >= 1 byte, got {self.chunk_budget}")
         if self.homology_dims is not None:
             dims = tuple(int(d) for d in self.homology_dims)
             if not dims:
@@ -110,34 +141,66 @@ class TopoRequest:
                     f"homology_dims must lie in [0, 3], got {dims}")
             object.__setattr__(self, "homology_dims", tuple(sorted(set(dims))))
 
+    @property
+    def is_stream(self) -> bool:
+        """Whether this request takes the out-of-core path."""
+        if self.stream is not None:
+            return bool(self.stream)
+        return _is_source(self.field) or self.chunk_z is not None \
+            or self.chunk_budget is not None
+
     def _later_options(self):
         """Names of set options that a later part of the port brings."""
-        unset = {"n_blocks": (None, 1), "distributed": (None, False),
-                 "progressive": (False,), "trace": (False,),
-                 "stream": (None, False)}
-        return [k for k in _LATER
-                if getattr(self, k) not in unset.get(k, (None,))]
+        unset = {"distributed": (None, False), "progressive": (False,),
+                 "trace": (False,)}
+        later = [k for k in _LATER if k != "n_blocks"
+                 and getattr(self, k) not in unset.get(k, (None,))]
+        # n_blocks > 1 is the sharded streaming engine when streamed with
+        # distributed=False, else a request for the distributed engines
+        if (self.n_blocks or 1) > 1 and (self.distributed is None
+                                         or not self.is_stream):
+            later.append("n_blocks")
+        return later
 
     def resolve(self) -> "TopoRequest":
         """Validation + grid inference; returns a new frozen request with
         ``grid`` filled in."""
         later = self._later_options()
         if later:
+            extra = ("; n_blocks > 1 runs here only as a streamed request "
+                     "with distributed=False (the sharded streaming engine)"
+                     if later[0] == "n_blocks" else "")
             raise NotImplementedError(
                 f"{later[0]}= is not ported to repro_torch yet; see "
-                f"ROADMAP.md {_LATER[later[0]]}")
-        if not isinstance(self.field, (np.ndarray, torch.Tensor)):
-            raise NotImplementedError(
-                "repro_torch takes in-memory fields (numpy arrays or torch "
-                f"tensors); field sources come with ROADMAP.md "
-                f"{_LATER['stream']}")
+                f"ROADMAP.md {_LATER[later[0]]}{extra}")
+        if self.stream is False and _is_source(self.field):
+            raise ValueError(
+                "stream=False conflicts with a FieldSource field; sources "
+                "are only served by the streamed path")
+        if not self.is_stream and (self.chunk_z is not None
+                                   or self.chunk_budget is not None):
+            raise ValueError(
+                "chunk_z/chunk_budget only apply to streamed requests")
+        if not _is_source(self.field) \
+                and not isinstance(self.field, (np.ndarray, torch.Tensor)):
+            raise TypeError(
+                "repro_torch takes numpy arrays, torch tensors or "
+                f"FieldSources as fields, got {type(self.field).__name__}")
         shape = _shape(self.field)
         if self.grid is not None:
-            if len(shape) > 1 and Grid.of(*shape[::-1]).dims != self.grid.dims:
+            if _is_source(self.field):
+                src_dims = Grid.of(*self.field.dims).dims
+                if tuple(self.grid.dims) != src_dims:
+                    raise ValueError(
+                        f"grid dims {self.grid.dims} conflict with the "
+                        f"FieldSource's own dims {src_dims}; a source is "
+                        f"authoritative — omit grid= or make them match")
+            elif len(shape) > 1 \
+                    and Grid.of(*shape[::-1]).dims != self.grid.dims:
                 raise ValueError(
                     f"grid dims {self.grid.dims} conflict with the field "
                     f"shape {shape}; reshape the field or fix grid=")
-            if len(shape) == 1 and shape[0] != self.grid.nv:
+            elif len(shape) == 1 and shape[0] != self.grid.nv:
                 raise ValueError(
                     f"flat field has {shape[0]} values but grid "
                     f"{self.grid.dims} has {self.grid.nv} vertices")
@@ -154,7 +217,7 @@ class TopoRequest:
 
     @property
     def field_shape(self) -> tuple:
-        """Batching key for the field payload."""
+        """Batching key for the field payload (source dims or shape)."""
         return _shape(self.field)
 
 

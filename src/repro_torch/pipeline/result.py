@@ -1,18 +1,40 @@
-"""`DiagramResult` — a queryable persistence-diagram result.
+"""`DiagramResult` — a queryable, serializable persistence-diagram result.
 
-PyTorch counterpart of ``repro.pipeline.result`` (the DDMS v1 wire format
-is not ported yet: ROADMAP.md).  The result keeps the live
-:class:`~repro_torch.core.diagram.Diagram` (device tensors) and the
-:class:`StageReport`, and answers queries from small canonical numpy
-arrays built once when the pipeline finishes (critical simplices only),
-so a kept result does not pin the field or the dense arrays:
-``pairs(dim, min_persistence=…, top_k=…, space=…)``, ``essential(dim)``,
-``betti()`` and ``arrays()`` — the same names and contents as the
-reference's.
+PyTorch counterpart of ``repro.pipeline.result``.  The result keeps the
+live :class:`~repro_torch.core.diagram.Diagram` (device tensors), the
+:class:`StageReport` and, for streamed runs, the
+:class:`~repro_torch.stream.StreamReport`; it answers queries from small
+canonical numpy arrays built once when the pipeline finishes (critical
+simplices only), so a kept result does not pin the field or the dense
+arrays: ``pairs(dim, min_persistence=…, top_k=…, space=…)``,
+``essential(dim)``, ``betti()`` and ``arrays()`` — the same names and
+contents as the reference's.
+
+It serializes to the **DDMS v1 wire format** (``to_bytes`` /
+``from_bytes``), byte for byte the reference's: a fixed header (magic
+``DDMS``, version, grid dims) followed by dtype-tagged named arrays, so a
+payload written by either package decodes in the other.
+
+Wire format v1 (all little-endian)::
+
+    header:  magic  b"DDMS" | version u16 | grid_ndim u8 | flags u8
+             dims 3 x u64   | n_arrays u32
+    array:   name_len u16 | name utf-8
+             dtype_len u8 | numpy dtype.str ascii (e.g. "<i8", "<f4")
+             ndim u8 | shape ndim x u64 | nbytes u64 | raw C-order data
+
+Arrays are written in sorted name order.  Per computed homology
+dimension ``p`` they are ``d{p}.pairs_sids`` (n, 2) simplex ids,
+``d{p}.pairs_orders`` (n, 2) vertex orders, ``d{p}.pairs_values`` (n, 2)
+field values, and the ``essential_*`` triple of the same; plus
+``grid_dims``, ``homology_dims`` and ``query_defaults`` (min_persistence,
+top_k; nan / -1 when unset).  Unknown (future-version) arrays are kept by
+``from_bytes``, so the format can grow without breaking old readers.
 """
 
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Tuple
 
@@ -20,10 +42,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.diagram import Diagram
+from repro_torch.stream.scheduler import StreamReport
 
 from .plan import Plan
 from .request import TopoRequest
 from .stages import StageReport
+
+
+WIRE_MAGIC = b"DDMS"
+WIRE_VERSION = 1
 
 
 def _np(t: torch.Tensor) -> np.ndarray:
@@ -32,11 +59,14 @@ def _np(t: torch.Tensor) -> np.ndarray:
 
 @dataclass
 class DiagramResult:
-    """Diagram + stage report + queries over canonical arrays."""
+    """Diagram + stage report + queries over canonical arrays + wire
+    serialization.  ``diagram`` is None for results decoded from the
+    wire; queries still work off the decoded arrays."""
 
     diagram: Optional[Diagram]
     stats: Dict[str, float] = field(default_factory=dict)
     report: Optional[StageReport] = None
+    stream: Optional[StreamReport] = None
     request: Optional[TopoRequest] = None
     plan: Optional[Plan] = None
     _arrays: Dict[str, np.ndarray] = field(default_factory=dict, repr=False)
@@ -45,11 +75,15 @@ class DiagramResult:
 
     @property
     def grid_dims(self) -> Tuple[int, ...]:
-        return self.diagram.grid.dims
+        if self.diagram is not None:
+            return self.diagram.grid.dims
+        return tuple(int(d) for d in self._arrays["grid_dims"])
 
     @property
     def homology_dims(self) -> Tuple[int, ...]:
         """Homology dimensions this result computed."""
+        if "homology_dims" in self._arrays:
+            return tuple(int(d) for d in self._arrays["homology_dims"])
         if self.plan is not None and self.plan.homology_dims:
             return self.plan.homology_dims
         return tuple(range(self.diagram.grid.dim + 1))
@@ -58,6 +92,8 @@ class DiagramResult:
         """Canonical per-dimension arrays from the live diagram, sorted by
         (birth order, death order)."""
         dg, vf, req = self.diagram, self._values_fn, self.request
+        if dg is None:
+            raise ValueError("no diagram and no decoded arrays")
         order = dg.order
         out: Dict[str, np.ndarray] = {
             "grid_dims": np.asarray(dg.grid.dims, dtype=np.int64),
@@ -102,6 +138,7 @@ class DiagramResult:
             out[f"d{p}.essential_orders"] = eo
             if evals is not None:
                 out[f"d{p}.essential_values"] = evals
+        out.update(self._arrays)  # never clobber decoded arrays
         self._arrays = out
 
     def arrays(self) -> Dict[str, np.ndarray]:
@@ -124,18 +161,31 @@ class DiagramResult:
                              "query with space='order' instead")
         return arrs[key]
 
+    def _default_queries(self) -> tuple:
+        """(min_persistence, top_k) defaults: from the originating
+        request, or from the decoded ``query_defaults`` wire array."""
+        if self.request is not None:
+            return self.request.min_persistence, self.request.top_k
+        qd = self._arrays.get("query_defaults")
+        if qd is None:
+            return None, None
+        mp = None if np.isnan(qd[0]) else float(qd[0])
+        tk = None if qd[1] < 0 else int(qd[1])
+        return mp, tk
+
     def pairs(self, dim: int = 0, *, min_persistence: Optional[float] = None,
               top_k: Optional[int] = None, space: str = "value") -> np.ndarray:
         """(n, 2) (birth, death) points of dimension ``dim``, sorted by
         descending persistence (ties by birth).  ``min_persistence`` keeps
         ``death - birth >=`` the threshold, ``top_k`` the k most
-        persistent; defaults come from the request (its value-space
-        ``min_persistence`` is not applied to order-space queries)."""
-        req = self.request
-        if min_persistence is None and space == "value" and req is not None:
-            min_persistence = req.min_persistence
-        if top_k is None and req is not None:
-            top_k = req.top_k
+        persistent; defaults come from the request, or from the decoded
+        ``query_defaults`` wire array (the value-space ``min_persistence``
+        is not applied to order-space queries)."""
+        d_mp, d_tk = self._default_queries()
+        if min_persistence is None and space == "value":
+            min_persistence = d_mp
+        if top_k is None:
+            top_k = d_tk
         pts = self._dim_arrays(dim, "pairs", space)
         pers = pts[:, 1] - pts[:, 0]
         if min_persistence is not None and min_persistence > 0:
@@ -155,3 +205,66 @@ class DiagramResult:
         arrs = self.arrays()
         return {p: len(arrs[f"d{p}.essential_sids"])
                 for p in self.homology_dims}
+
+    # -- wire format ---------------------------------------------------------
+
+    def to_bytes(self) -> bytes:
+        """Serialize to the versioned DDMS wire format (see module doc)."""
+        arrs = self.arrays()
+        dims = self.grid_dims
+        parts = [WIRE_MAGIC,
+                 struct.pack("<HBB", WIRE_VERSION, len(dims), 0),
+                 struct.pack("<3Q", *dims),
+                 struct.pack("<I", len(arrs))]
+        for name in sorted(arrs):
+            a = np.ascontiguousarray(arrs[name])
+            nb = name.encode("utf-8")
+            ds = a.dtype.str.encode("ascii")
+            parts.append(struct.pack("<H", len(nb)) + nb)
+            parts.append(struct.pack("<B", len(ds)) + ds)
+            parts.append(struct.pack("<B", a.ndim)
+                         + struct.pack(f"<{a.ndim}Q", *a.shape))
+            parts.append(struct.pack("<Q", a.nbytes))
+            parts.append(a.tobytes())
+        return b"".join(parts)
+
+    @classmethod
+    def from_bytes(cls, payload: bytes) -> "DiagramResult":
+        """Decode a wire payload into a queryable result (no live
+        Diagram; ``pairs``/``essential``/``betti`` work off the arrays)."""
+        buf = memoryview(payload)
+        if bytes(buf[:4]) != WIRE_MAGIC:
+            raise ValueError(
+                f"not a DDMS payload (magic {bytes(buf[:4])!r})")
+        version, _ndim, _flags = struct.unpack_from("<HBB", buf, 4)
+        if version > WIRE_VERSION:
+            raise ValueError(
+                f"wire version {version} is newer than supported "
+                f"({WIRE_VERSION})")
+        dims = struct.unpack_from("<3Q", buf, 8)
+        (n_arrays,) = struct.unpack_from("<I", buf, 32)
+        off = 36
+        arrs: Dict[str, np.ndarray] = {}
+        for _ in range(n_arrays):
+            (nlen,) = struct.unpack_from("<H", buf, off)
+            off += 2
+            name = bytes(buf[off:off + nlen]).decode("utf-8")
+            off += nlen
+            (dlen,) = struct.unpack_from("<B", buf, off)
+            off += 1
+            dtype = np.dtype(bytes(buf[off:off + dlen]).decode("ascii"))
+            off += dlen
+            (andim,) = struct.unpack_from("<B", buf, off)
+            off += 1
+            shape = struct.unpack_from(f"<{andim}Q", buf, off)
+            off += 8 * andim
+            (nbytes,) = struct.unpack_from("<Q", buf, off)
+            off += 8
+            a = np.frombuffer(buf[off:off + nbytes], dtype=dtype)
+            arrs[name] = a.reshape(shape).copy()
+            off += nbytes
+        if off != len(payload):
+            raise ValueError(
+                f"trailing bytes in payload ({len(payload) - off})")
+        arrs.setdefault("grid_dims", np.asarray(dims, dtype=np.int64))
+        return cls(diagram=None, _arrays=arrs)

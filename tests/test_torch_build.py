@@ -116,6 +116,20 @@ extern "C" void core_i64(const int64_t* a, const int64_t* b, long long n,
                          int8_t* s, int8_t* p, int8_t* vs, int32_t* vp) {
   run(a, b, n, s, p, vs, vp);
 }
+// the fused kernel's neighbour addressing: n vertices of an ext volume
+// (halo = 1, nz owned planes) or of a (B, nz, ny, nx) tensor (halo = 0);
+// nb (n, 14) edge neighbours, ov (n,) the vertices' own orders
+extern "C" void gather_i64(const int64_t* src, int halo, long long B, int nz,
+                           int ny, int nx, int64_t* nb, int64_t* ov) {
+  const ls::Addr a = halo ? ls::Addr::ext(nz, ny, nx)
+                          : ls::Addr::whole(B, nz, ny, nx);
+  const long long n = halo ? (long long)nz * ny * nx : a.n_src;
+  for (long long g = 0; g < n; ++g) {
+    int64_t e[ls::NE];
+    ls::gather_edges<int64_t>(src, a, g, e, ov[g]);
+    for (int k = 0; k < ls::NE; ++k) nb[g * ls::NE + k] = e[k];
+  }
+}
 """
 
 
@@ -137,6 +151,9 @@ def host_core(tmp_path_factory):
     for f in (lib.core_i32, lib.core_i64):
         f.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + \
             [ctypes.c_void_p] * 4
+    lib.gather_i64.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_longlong] + [ctypes.c_int] * 3 + \
+        [ctypes.c_void_p] * 2
     return lib
 
 
@@ -206,3 +223,53 @@ def test_local_key_pairing_matches_jnp_oracle(host_core, dims, variant):
                           ("status", "partner", "vstat", "vpart")):
         np.testing.assert_array_equal(np.asarray(a), b.numpy(),
                                       err_msg=f"{dims} {variant[0]} {name}")
+
+
+def _gather(host_core, src, halo, B, nz, ny, nx, n):
+    src = src.contiguous()
+    nb = torch.empty((n, 14), dtype=torch.int64)
+    ov = torch.empty(n, dtype=torch.int64)
+    host_core.gather_i64(src.data_ptr(), halo, B, nz, ny, nx, nb.data_ptr(),
+                         ov.data_ptr())
+    return nb, ov
+
+
+# (nx, ny, nzl + 2) ext volumes: thin, 2-D-like and 1-D-like slabs
+@pytest.mark.parametrize("ext_dims", [(5, 4, 3), (6, 5, 7), (1, 1, 9),
+                                      (7, 1, 4), (1, 6, 5), (9, 4, 3)])
+@pytest.mark.parametrize("ghosts", ["data", "boundary"])
+def test_host_halo_addressing_matches_neighbor_orders(host_core, ext_dims,
+                                                      ghosts):
+    """The fused kernel's halo addressing (``ls::Addr::ext`` +
+    ``ls::gather_edges``) reads, for every owned vertex of an ext volume,
+    the neighbours ``neighbor_orders`` gathers over the ext grid (edge
+    slots, tolerance 0): z neighbours from the ghost planes, x and y
+    masked at the grid's sides; keys near 2**62 as streaming makes them."""
+    nx, ny, nzh = ext_dims
+    g = Grid.of(nx, ny, nzh)
+    rng = np.random.default_rng(21)
+    ext = torch.from_numpy(rng.permutation(g.nv).astype(np.int64)
+                           + (1 << 62))
+    if ghosts == "boundary":
+        ext.reshape(nzh, -1)[[0, -1]] = -1
+    want = neighbor_orders(g, ext).reshape(nzh, ny * nx, 27)[1:-1]
+    want = want.reshape(-1, 27)[:, ref.EDGE_NBR]
+    n = (nzh - 2) * ny * nx
+    nb, ov = _gather(host_core, ext, 1, 1, nzh - 2, ny, nx, n)
+    assert torch.equal(nb, want)
+    assert torch.equal(ov, ext.reshape(nzh, -1)[1:-1].reshape(-1))
+
+
+@pytest.mark.parametrize("dims,B", [((5, 4, 3), 1), ((7, 6, 5), 3),
+                                    ((1, 1, 9), 2), ((9, 4, 1), 2)])
+def test_host_whole_grid_addressing_matches_neighbor_orders(host_core, dims,
+                                                            B):
+    """The whole-grid addressing (``ls::Addr::whole``) masks x, y and z
+    within each batch member, as ``neighbor_orders`` does per member."""
+    g = Grid.of(*dims)
+    rng = np.random.default_rng(22)
+    o = torch.from_numpy(rng.integers(0, 1 << 40, (B, g.nv)))
+    want = torch.cat([neighbor_orders(g, ob) for ob in o])[:, ref.EDGE_NBR]
+    nx, ny, nz = g.dims
+    nb, ov = _gather(host_core, o, 0, B, nz, ny, nx, B * g.nv)
+    assert torch.equal(nb, want) and torch.equal(ov, o.reshape(-1))

@@ -162,7 +162,9 @@ def test_lower_describes_the_plan():
 
 
 @pytest.mark.parametrize("option", [
-    dict(stream=True), dict(chunk_z=2), dict(epsilon=0.1),
+    # streaming is ported; its distributed engines are not
+    dict(stream=True, n_blocks=2), dict(chunk_z=2, distributed=True),
+    dict(epsilon=0.1),
     dict(progressive=True), dict(deadline_s=1.0), dict(trace=True),
     dict(cache=True), dict(n_blocks=2), dict(distributed=True)])
 def test_later_slice_options_raise(option):
