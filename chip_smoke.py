@@ -50,9 +50,31 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               over ``FunctionSource.synthetic("random", 512^3)`` with the
               default 64 MiB chunk budget (critical counts with Euler
               characteristic 1).  Nothing here is caught.
-5. cpu      — diagrams on the card equal those on the CPU (32^3 wavelet,
+5. approx   — approximation at ``isabel`` 256^3: the ``Hierarchy`` on
+              the card (levels, dims and bounds equal to the CPU's; the
+              level-1 ``block_minmax`` and the cascade timed beside their
+              byte bounds and beside ``max_pool3d``), ``approximate`` at
+              each of the 7 coarse levels with the bottleneck guarantee
+              checked against the exact 256^3 diagram of phase 3 for the
+              dimensions whose pair counts fit GUARANTEE_BUDGET (the rest
+              logged as skipped), and in full on ``wavelet`` 64^3;
+              ``epsilon`` picks the expected level; ``refine`` under a
+              deadline and to the end at 128^3 (equal to ``run`` of the
+              progressive request); a ``MemmapSource`` of the field at
+              level 1 through the halo entry, equal to the in-memory
+              payload.  Launch counters zeroed just before and read just
+              after: the fused kernel once per level, the plain version
+              never on the card.
+6. serve    — ``TopoService(cache=True)`` on the card: four same-shape
+              64^3 fields from client threads in one batched dispatch
+              (equal to ``run``), resubmitted as cache hits that launch no
+              kernel, a progressive 256^3 submit with ``deadline_s``
+              (preview first), a later ``epsilon`` submit served from the
+              refined entry, a traced request (one span per stage), a
+              ``wire=True`` payload, and ``stats_payload``.
+7. cpu      — diagrams on the card equal those on the CPU (32^3 wavelet,
               32^3 random, a thin 2-D grid).
-6. timing   — CUDA-event times of ``fused`` and ``prepass`` at 256^3
+8. timing   — CUDA-event times of ``fused`` and ``prepass`` at 256^3
               (``isabel``, ``random``) and 512^3 (``random``) and of the
               plain version at 256^3, each beside its bound (the longer of
               its bytes over 3.35 TB/s and the integer operations the
@@ -67,7 +89,7 @@ The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script prints no result and exits non-zero.
 
-``--timing-of DIR`` runs only phase 6 (without the plain version) on the
+``--timing-of DIR`` runs only phase 8 (without the plain version) on the
 port in another tree DIR, for instance the parent commit unpacked with
 ``git archive`` into a git-ignored directory; it prints no result lines.
 To compare two trees, time them in turns in one call on one card (A, B,
@@ -288,7 +310,13 @@ def phase_kernels():
              ((129, 7, 5), 1, i32, 0), ((1, 1, 300), 1, i32, 0),
              ((1, 1, 300), 1, i64, big), ((7, 6, 5), 3, i32, 0),
              ((33, 17, 9), 1, i64, big), ((40, 30, 20), 3, i64, big),
-             ((129, 1, 1), 3, i64, big)]
+             ((129, 1, 1), 3, i64, big),
+             # the approximation levels of 256^3 below 128^3 and the
+             # service's batch of four 64^3 fields
+             ((64, 64, 64), 1, i32, 0), ((64, 64, 64), 4, i32, 0),
+             ((32, 32, 32), 1, i32, 0), ((16, 16, 16), 1, i32, 0),
+             ((8, 8, 8), 1, i32, 0), ((4, 4, 4), 1, i32, 0),
+             ((2, 2, 2), 1, i32, 0)]
     max_err = 0
     for dims, B, dtype, offset in cases:
         g = Grid.of(*dims)
@@ -335,6 +363,8 @@ def phase_halo_kernels(isabel_256):
     # (dims, chunk_z, field, chunks): "ends" takes the first, a middle
     # and the last chunk
     cases = [((256, 256, 256), 32, "isabel", "ends"),
+             # the memmapped approximation level 1 of isabel 256^3
+             ((128, 128, 128), 32, "isabel/2", "all"),
              ((64, 48, 40), 8, "normal", "all"),
              ((33, 17, 9), 9, "normal", "all"),    # one chunk, two -1 ghosts
              ((40, 30, 20), 1, "normal", "all"),   # nzl = 1
@@ -347,6 +377,9 @@ def phase_halo_kernels(isabel_256):
         g = Grid.of(*dims)
         if kind == "isabel":
             f = torch.from_numpy(isabel_256).cuda()
+        elif kind == "isabel/2":
+            f = torch.from_numpy(isabel_256).cuda().reshape(
+                (256,) * 3)[::2, ::2, ::2].reshape(-1)
         else:
             f = torch.randn(g.nv, generator=gen, device="cuda")
             if kind == "ties":
@@ -616,6 +649,351 @@ def phase_stream(fields, results):
     return halo_launches
 
 
+# budget of the dense bottleneck check: an (n x m) float64 distance matrix
+# and a max-flow over up to n*m edges in Python (~2.5 s at 10^6 on a host
+# core); a dimension whose n*m exceeds it is logged as skipped
+GUARANTEE_BUDGET = 10 ** 6
+
+
+def check_guarantee(res, exact, dims, what):
+    """``bottleneck(res, exact) <= res.error_bound`` for each homology
+    dimension whose pair counts fit GUARANTEE_BUDGET (essential classes
+    always); returns ({dim: n x m checked}, {dim: n x m skipped})."""
+    from repro_torch.approx import bottleneck_feasible, essential_distance
+    bound = res.error_bound + 1e-9
+    checked, skipped = {}, {}
+    for p in range(len(dims)):
+        a = res.pairs(p, min_persistence=0)
+        b = exact.pairs(p, min_persistence=0)
+        if essential_distance(res.essential(p), exact.essential(p)) > bound:
+            raise AssertionError(f"{what}: essential classes of dim {p} "
+                                 f"exceed the bound {bound}")
+        nm = len(a) * len(b)
+        if nm > GUARANTEE_BUDGET:
+            skipped[p] = f"{len(a)}x{len(b)}"
+            continue
+        if not bottleneck_feasible(a, b, bound):
+            raise AssertionError(f"{what}: dim {p} exceeds the bound {bound}")
+        checked[p] = f"{len(a)}x{len(b)}"
+    return checked, skipped
+
+
+def time_block_minmax(f3, top, smi):
+    """CUDA-event times of the level-1 ``block_minmax`` and of the cascade
+    beside their byte bounds, and of ``max_pool3d`` (max and negated min)
+    as the library call for the level-1 pass."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.approx import block_minmax
+    from repro_torch.approx.hierarchy import cascade_minmax
+    mn, mx = block_minmax(f3, 2)
+    lib = lambda: (F.max_pool3d(f3[None, None], 2, 2, ceil_mode=True),
+                   -F.max_pool3d(-f3[None, None], 2, 2, ceil_mode=True))
+    lmx, lmn = lib()
+    if not (torch.equal(lmx[0, 0], mx) and torch.equal(lmn[0, 0], mn)):
+        raise AssertionError("max_pool3d disagrees with block_minmax")
+    elt = f3.element_size()
+    rec = {}
+    for name, fn, nbytes in (
+            ("block_minmax", lambda: block_minmax(f3, 2),
+             f3.numel() * elt + 2 * mn.numel() * elt),
+            ("cascade", lambda: cascade_minmax(mn, mx, top),
+             sum(2 * mn.numel() * elt // 8 ** (l - 2)
+                 + 2 * mn.numel() * elt // 8 ** (l - 1)
+                 for l in range(2, top + 1)))):
+        ms = cuda_ms(fn, reps=20)
+        bms, by = bound_ms(dict(bytes=nbytes, ops=0))
+        rec[name] = dict(ms=ms, bound_ms=bms, bound_by=by, bytes=nbytes)
+    rec["block_minmax"]["library_ms"] = cuda_ms(lib, reps=20)
+    for name, r in rec.items():
+        log("approx", timing=name, dims=tuple(f3.shape), **r, smi=smi)
+
+
+def phase_approx(fields, results, n=256):
+    """Approximation on the card at ``isabel`` 256^3: the hierarchy
+    (pyramid timed beside its bound; levels equal to the CPU's), every
+    coarse level through ``approximate`` with its guarantee checked
+    against the exact diagram of [main] as GUARANTEE_BUDGET allows, the
+    full guarantee at 64^3 (``wavelet``), ``epsilon`` routing, ``refine`` with a
+    deadline and to the end, and a ``MemmapSource`` at level 1 through
+    the halo entry.  The launch counters are zeroed just before and read
+    just after the approximation runs."""
+    import tempfile
+    import numpy as np
+    import torch
+    from repro_torch.approx import Hierarchy, approximate, refine
+    from repro_torch.core.grid import Grid
+    from repro_torch.fields.generators import make_field
+    from repro_torch.kernels import lower_star as LS
+    from repro_torch.kernels import ref
+    from repro_torch.pipeline import PersistencePipeline, TopoRequest
+    from repro_torch.stream import MemmapSource
+    smi = nvidia_smi_line()
+    g = Grid.of(n, n, n)
+    isabel = fields[("isabel", g.dims)]
+    exact = results[("isabel", g.dims, "fused")]
+    pipe = PersistencePipeline()
+    req = TopoRequest(field=isabel, grid=g)
+
+    f3 = torch.from_numpy(isabel).to(pipe.device).reshape(n, n, n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = Hierarchy(f3, g, device=pipe.device)
+    build_s = time.perf_counter() - t0
+    h_cpu = Hierarchy(isabel, g)
+    cpu_levels = [(lv.level, lv.stride, lv.dims, lv.bound)
+                  for lv in h_cpu.levels]
+    levels = [(lv.level, lv.stride, lv.dims, lv.bound) for lv in h.levels]
+    log("approx", hierarchy="isabel", dims=g.dims, seconds=round(build_s, 4),
+        levels=levels, equals_cpu=levels == cpu_levels, smi=smi)
+    if levels != cpu_levels or h.max_level != n.bit_length() - 2:
+        raise AssertionError(f"hierarchy on the card {levels} differs "
+                             f"from the CPU's {cpu_levels}")
+    time_block_minmax(f3, h.max_level, smi)
+
+    _zero_counts()
+    by_level = {}
+    for lv in h.levels[1:]:
+        t0 = time.perf_counter()
+        res = approximate(pipe, req, level=lv.level, hierarchy=h)
+        secs = time.perf_counter() - t0
+        checked, skipped = check_guarantee(res, exact, g.dims,
+                                           f"level {lv.level}")
+        log("approx", level=lv.level, dims=lv.dims, bound=lv.bound,
+            seconds=round(secs, 4),
+            pairs={p: len(res.pairs(p, min_persistence=0))
+                   for p in range(3)},
+            d1_rounds=res.stats.get("d1_rounds"), guarantee_checked=checked,
+            guarantee_skipped=skipped, stages=_stage_line(res))
+        if (res.error_bound, res.approx_level, res.grid_dims) != \
+                (lv.bound, lv.level, lv.dims):
+            raise AssertionError(f"level {lv.level}: wrong guarantee stamp")
+        by_level[lv.level] = res
+    torch.cuda.synchronize()
+    launches = dict(LS.LAUNCHES)
+    plain = ref.CUDA_CALLS["lower_star_gradient_torch"]
+    log("approx", levels_run=len(by_level), launches=launches,
+        plain_on_card=plain)
+    if launches["fused"] != len(by_level) or plain:
+        raise AssertionError(f"approximation launches {launches}, plain "
+                             f"{plain}: want the fused kernel once a level")
+
+    # each level from 64^3 down, payload byte-equal to the same level on
+    # the CPU (the plain version on the same decimated field)
+    cpu_pipe = PersistencePipeline(device="cpu")
+    for lv in h.levels[2:]:
+        t0 = time.perf_counter()
+        cpu = approximate(cpu_pipe, req, level=lv.level, hierarchy=h_cpu)
+        same = cpu.to_bytes() == by_level[lv.level].to_bytes()
+        log("approx", level=lv.level, dims=lv.dims, equals_cpu=same,
+            cpu_seconds=round(time.perf_counter() - t0, 4))
+        if not same:
+            raise AssertionError(f"level {lv.level}: the card's payload "
+                                 f"differs from the CPU's")
+
+    # the whole guarantee at (n/4)^3, every level and every dimension, on the
+    # smooth field whose pair counts fit the budget (isabel 64^3 has
+    # 9980 / 25567 / 7121 pairs, too many for the dense check)
+    q = n // 4
+    f_q = make_field("wavelet", (q, q, q), seed=SEED)
+    r_q = TopoRequest(field=f_q, grid=Grid.of(q, q, q))
+    ex_q = pipe.run(r_q)
+    for lv in Hierarchy(f_q, r_q.grid, device=pipe.device).levels[1:]:
+        res = approximate(pipe, r_q, level=lv.level)
+        checked, skipped = check_guarantee(res, ex_q, r_q.grid.dims,
+                                           f"{q}^3 level {lv.level}")
+        log("approx", full_check="wavelet", dims=r_q.grid.dims,
+            level=lv.level, bound=lv.bound, guarantee_checked=checked,
+            guarantee_skipped=skipped)
+        if skipped:
+            raise AssertionError(f"{q}^3 level {lv.level}: {skipped} did "
+                                 f"not fit the budget")
+
+    # epsilon picks the coarsest level that meets it
+    eps = h.bound(3) + 1e-6
+    want = h.pick_level(eps).level
+    res = pipe.run(req.replace(epsilon=eps))
+    log("approx", epsilon=eps, level=res.approx_level, expected=want)
+    if res.approx_level != want or want != 3 or \
+            res.to_bytes() != by_level[3].to_bytes():
+        raise AssertionError(f"epsilon {eps} chose level "
+                             f"{res.approx_level}, want {want}")
+
+    # refine under a deadline: at least one result, bounds never grow
+    t0 = time.perf_counter()
+    walk = list(refine(pipe, req, deadline_s=0.5))
+    bounds = [r.error_bound for r in walk]
+    log("approx", refine="deadline_s=0.5", seconds=round(
+        time.perf_counter() - t0, 4), levels=[r.approx_level for r in walk],
+        bounds=bounds)
+    if not walk or bounds != sorted(bounds, reverse=True):
+        raise AssertionError(f"refine under a deadline gave {bounds}")
+
+    # refine to the end at (n/2)^3 == run of the same progressive request
+    f_h = make_field("isabel", (n // 2,) * 3, seed=SEED)
+    r_h = TopoRequest(field=f_h, grid=Grid.of(n // 2, n // 2, n // 2))
+    t0 = time.perf_counter()
+    walk = list(refine(pipe, r_h))
+    walk_s = time.perf_counter() - t0
+    same = walk[-1].to_bytes() == pipe.run(
+        r_h.replace(progressive=True)).to_bytes()
+    log("approx", refine="to the end", field="isabel", dims=r_h.grid.dims,
+        seconds=round(walk_s, 4), levels=[r.approx_level for r in walk],
+        bounds=[r.error_bound for r in walk], equals_run=same)
+    if not same or walk[-1].error_bound != 0.0:
+        raise AssertionError("refine's last result differs from run")
+
+    # out of core: a MemmapSource of the n^3 field at level 1
+    with tempfile.TemporaryDirectory() as tmp:
+        src = MemmapSource.write(os.path.join(tmp, "isabel.raw"),
+                                 isabel.reshape(n, n, n))
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = approximate(pipe, TopoRequest(field=src, chunk_z=n // 4),
+                          level=1)
+        secs = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = dict(LS.LAUNCHES)
+        plain = ref.CUDA_CALLS["lower_star_gradient_torch"]
+    same = res.to_bytes() == by_level[1].to_bytes()
+    log("approx", source="memmap", level=1, seconds=round(secs, 4),
+        launches=launches, plain_on_card=plain, equals_in_memory=same,
+        report=_report_line(res.stream), stages=_stage_line(res))
+    if not same or launches["fused_halo"] != res.stream.n_chunks or plain:
+        raise AssertionError("streamed level 1 differs or skipped the "
+                             "halo entry")
+    del f3, h, by_level
+    torch.cuda.empty_cache()
+
+
+def phase_serve(fields, n=256):
+    """``TopoService`` on the card: four same-shape 64^3 fields from
+    client threads in one batched dispatch (equal to ``run``), resubmitted
+    as cache hits with no kernel launch, a progressive 256^3 submit with a
+    deadline (preview first), a later ``epsilon`` submit served from the
+    entry refinement stored, a ``wire=True`` payload, a traced request
+    with one span per stage, and ``stats_payload``."""
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch.core.grid import Grid
+    from repro_torch.fields.generators import make_field
+    from repro_torch.kernels import lower_star as LS
+    from repro_torch.kernels import ref
+    from repro_torch.obs import validate_trace_events
+    from repro_torch.pipeline import (DiagramResult, PersistencePipeline,
+                                      TopoRequest)
+    from repro_torch.serve import TopoService, stats_payload
+    smi = nvidia_smi_line()
+    dims = (n // 4,) * 3
+    vols = [make_field(name, dims, seed=s).reshape(dims)
+            for name, s in (("random", 1), ("wavelet", 2), ("magnetic", 3),
+                            ("isabel", 4))]
+    pipe = PersistencePipeline()
+    want = [pipe.run(TopoRequest(field=v)).to_bytes() for v in vols]
+    isabel = fields[("isabel", (n, n, n))].reshape(n, n, n)
+    with TopoService(pipe, cache=True, max_batch=8, max_wait_s=0.5) as svc:
+        futs = [None] * 4
+        gate = threading.Barrier(4)
+
+        def client(i):
+            gate.wait()
+            futs[i] = svc.submit(vols[i])
+
+        _zero_counts()
+        t0 = time.perf_counter()
+        ts = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(60)
+        got = [f.result(timeout=300) for f in futs]
+        batch_s = time.perf_counter() - t0
+        launches = dict(LS.LAUNCHES)
+        same = [r.to_bytes() == w for r, w in zip(got, want)]
+        log("serve", batch=4, dims=dims, seconds=round(batch_s, 4),
+            batches=svc.stats.batches, max_batch=svc.stats.max_batch,
+            launches=launches, equals_run=same, smi=smi)
+        if svc.stats.batches != 1 or launches["fused"] != 1 or not all(same):
+            raise AssertionError("four same-shape submits were not served "
+                                 "in one batched dispatch equal to run")
+
+        _zero_counts()
+        t0 = time.perf_counter()
+        futs = [svc.submit(v) for v in vols]
+        hits = [f.result(timeout=300) for f in futs]
+        hit_s = time.perf_counter() - t0
+        launches = dict(LS.LAUNCHES)
+        same = [r.to_bytes() == w for r, w in zip(hits, want)]
+        log("serve", resubmit=4, seconds=round(hit_s, 4),
+            cache_hits=svc.stats.cache_hits, launches=launches,
+            equals_run=same)
+        if svc.stats.cache_hits != 4 or sum(launches.values()) or \
+                not all(same):
+            raise AssertionError("resubmits were not pure cache hits")
+
+        _zero_counts()
+        seen = {}
+        t0 = time.perf_counter()
+        fut = svc.submit(TopoRequest(field=isabel, deadline_s=1.0))
+        # stamped where each future resolves (or at once if already done);
+        # the preview's stamp records whether the final had resolved
+        fut.preview.add_done_callback(lambda _: seen.setdefault(
+            "preview", (time.perf_counter() - t0, fut.done())))
+        fut.add_done_callback(lambda _: seen.setdefault(
+            "final", (time.perf_counter() - t0, True)))
+        preview = fut.preview.result(timeout=600)
+        final = fut.result(timeout=600)
+        (preview_s, final_first), (final_s, _) = seen["preview"], \
+            seen["final"]
+        top = n.bit_length() - 2
+        levels = [r.approx_level for r in fut.partials]
+        bounds = [r.error_bound for r in fut.partials]
+        log("serve", progressive="isabel", dims=(n,) * 3, deadline_s=1.0,
+            preview_s=round(preview_s, 4), final_s=round(final_s, 4),
+            final_done_at_preview=final_first, levels=levels, bounds=bounds,
+            launches=dict(LS.LAUNCHES),
+            plain_on_card=ref.CUDA_CALLS["lower_star_gradient_torch"])
+        if final_first or preview.approx_level != top \
+                or fut.partials[0] is not preview \
+                or fut.partials[-1] is not final \
+                or (final.approx_level < top and len(levels) < 2) \
+                or bounds != sorted(bounds, reverse=True) \
+                or ref.CUDA_CALLS["lower_star_gradient_torch"]:
+            raise AssertionError("progressive submit out of order")
+
+        hits0 = svc.stats.cache_hits
+        later = svc.submit(TopoRequest(field=isabel,
+                                       epsilon=final.error_bound)) \
+            .result(timeout=600)
+        log("serve", epsilon=final.error_bound,
+            served_from_cache=svc.stats.cache_hits == hits0 + 1,
+            level=later.approx_level)
+        if svc.stats.cache_hits != hits0 + 1 or \
+                later.to_bytes() != final.to_bytes():
+            raise AssertionError("the epsilon submit was not served from "
+                                 "the refined entry")
+
+        traced = svc.submit(TopoRequest(field=vols[0], trace=True)) \
+            .result(timeout=300)
+        doc = traced.trace.to_dict()
+        validate_trace_events(doc)
+        spans = [e["name"] for e in doc["traceEvents"] if e["ph"] == "X"]
+        log("serve", traced=True, spans=spans,
+            equals_run=traced.to_bytes() == want[0])
+        if spans != list(traced.plan.stage_names) or \
+                traced.to_bytes() != want[0]:
+            raise AssertionError(f"traced run spans {spans}")
+        stats = json.loads(stats_payload(svc))
+        log("serve", stats=json.dumps(stats, sort_keys=True))
+    with TopoService(pipe, wire=True) as svc:
+        blob = svc.submit(vols[1]).result(timeout=300)
+    back = DiagramResult.from_bytes(blob)
+    log("serve", wire=True, bytes=len(blob), decodes=back.betti())
+    if blob != want[1]:
+        raise AssertionError("wire payload differs from run's")
+
+
 def phase_gradient(isabel_256):
     """The full discrete-vector-field check (``check_gradient_valid``:
     every valid simplex in exactly one role, pairs incident and inside one
@@ -806,7 +1184,9 @@ def main(argv):
     launches, fields, results = phase_main(isabel)
     phase_gradient(isabel)
     halo_launches = phase_stream(fields, results)
+    phase_approx(fields, results)
     del results
+    phase_serve(fields)
     phase_cpu()
     rec = phase_timing(isabel, report)
     kernels = []

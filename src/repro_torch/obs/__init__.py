@@ -12,10 +12,13 @@ stall watchdog (the port's own copies of ``repro.obs``, pure Python).
   exceptions, watchdog stalls and ``SIGUSR1``.
 - :mod:`repro_torch.obs.watchdog` — progress lanes fed by
   ``progress(name)`` heartbeats from the chunk and halo loops.
+- :mod:`repro_torch.obs.exposition` — Prometheus text rendering of any
+  registry, the ``serve_metrics`` / ``MetricsServer`` scrape endpoint
+  (embedded in ``TopoService(metrics_port=...)``) and the periodic
+  ``SnapshotLogger``.
 
-``set_enabled(False)`` is the one kill switch.  The Prometheus
-exposition and the request option ``trace=`` come with ROADMAP.md
-Queue 1 item 8.
+``TopoRequest(trace=True)`` records one run's stage spans
+(``result.trace``).  ``set_enabled(False)`` is the one kill switch.
 """
 
 from .metrics import (Counter, Gauge, Histogram,  # noqa: F401
@@ -28,3 +31,6 @@ from .flight import (FlightRecorder, crash_dump,  # noqa: F401
                      record_event, set_dump_dir, thread_stacks)
 from .watchdog import (ProgressWatchdog, active_watchdog,  # noqa: F401
                        format_stall_report, lane, progress)
+from .exposition import (MetricsServer, SnapshotLogger,  # noqa: F401
+                         parse_prometheus_text, prometheus_name,
+                         render_prometheus, serve_metrics)

@@ -14,6 +14,12 @@ the front-end (order, then ONE batched lower-star rows launch over the
 (B, nv) stack, then the scatter) before the per-request back-end
 (critical extraction, D0, dual, D1).  A single ``run`` is a group of one.
 
+Approximate requests (``epsilon=`` / ``progressive=`` / ``deadline_s=``)
+go through :mod:`repro_torch.approx` one by one: the coarsest hierarchy
+level that meets ``epsilon``, or a coarse-to-fine walk, each level a
+plain run of a decimated field.  ``trace=True`` runs the request under a
+fresh :class:`~repro_torch.obs.trace.Trace` (``result.trace``).
+
 Streamed requests (a :class:`~repro_torch.stream.FieldSource` field, or
 ``stream=True``; ``diagram_stream`` is the shim) take the out-of-core
 path instead: the chunked front-end on rank-free (value, vid) keys
@@ -32,10 +38,12 @@ import torch
 
 from repro_torch.core.diagram import Diagram
 from repro_torch.core.gradient import scatter_results_batch
+from repro_torch.obs.trace import Trace, current_trace, maybe_span, \
+    trace_active
 
 from .backends import (Backend, available_backends, get_backend,
                        get_sandwich_backend)
-from .plan import Plan, PlanCache
+from .plan import Plan, PlanCache, default_plan_cache
 from .request import TopoRequest, strip_field
 from .result import DiagramResult
 from .stages import (ALL_STAGES, FRONT_STAGES, PipelineState, StageReport,
@@ -79,7 +87,8 @@ class PersistencePipeline:
     device : torch device; ``None`` means ``"cuda"``, which must be
         available (pass ``device="cpu"`` to run on the CPU, where the
         kernel backends use the plain PyTorch pairing).
-    plan_cache : cache of the per-grid scatter offset tables.
+    plan_cache : cache of the per-grid scatter offset tables (the
+        process-wide :func:`default_plan_cache` if None).
     """
 
     def __init__(self, backend: Union[str, Backend] = "fused", *,
@@ -95,7 +104,7 @@ class PersistencePipeline:
                 "not available; pass device='cpu' to run on the CPU")
         self.device = dev
         self.plan_cache = plan_cache if plan_cache is not None \
-            else PlanCache()
+            else default_plan_cache()
 
     def _get_backend(self, name: str) -> Backend:
         return self.backend if name == self.backend.name else get_backend(name)
@@ -139,7 +148,8 @@ class PersistencePipeline:
                     stage_names=front + _back_stage_names(g.dim, hdims),
                     streamed=streamed, chunk_z=req.chunk_z,
                     chunk_budget=req.chunk_budget,
-                    n_blocks=req.n_blocks or 1)
+                    n_blocks=req.n_blocks or 1, epsilon=req.epsilon,
+                    deadline_s=req.deadline_s, progressive=req.progressive)
 
     # -- run -------------------------------------------------------------
 
@@ -147,10 +157,31 @@ class PersistencePipeline:
             grid=None, **options) -> DiagramResult:
         """Execute one request end to end."""
         req = self._as_request(request, grid, **options).resolve()
+        if req.is_approx:
+            return self._run_approx(req)
         plan = self._lower_resolved(req)
+        if req.trace:
+            # reports made under the activation bind to the trace; the
+            # streaming workers take it from their stage report
+            with trace_active(Trace()):
+                return self._run_planned(req, plan)
+        return self._run_planned(req, plan)
+
+    def _run_planned(self, req: TopoRequest, plan: Plan) -> DiagramResult:
         if plan.streamed:
             return self._run_stream(req, plan)
         return self._run_group([req], plan)[0]
+
+    def _run_approx(self, req: TopoRequest) -> DiagramResult:
+        """Bounded-error path: the level that meets ``epsilon``, or the
+        final result of a coarse-to-fine walk for progressive and
+        deadline-carrying requests (``repro_torch.approx.refine`` yields
+        the intermediates)."""
+        from repro_torch.approx.engine import approximate
+        from repro_torch.approx.progressive import approximate_progressive
+        if req.progressive or req.deadline_s is not None:
+            return approximate_progressive(self, req)
+        return approximate(self, req)
 
     def run_batch(self, requests: Sequence) -> List[DiagramResult]:
         """Execute a batch: same-plan, same-shape requests share one
@@ -163,6 +194,12 @@ class PersistencePipeline:
         out: List[Optional[DiagramResult]] = [None] * len(reqs)
         for idxs in groups.values():
             plan = plans[idxs[0]]
+            if any(reqs[i].trace for i in idxs) or plan.is_approx:
+                # a trace is per run, and approximation picks its level
+                # per field: both serve one by one
+                for i in idxs:
+                    out[i] = self.run(reqs[i])
+                continue
             if plan.streamed:
                 for i in idxs:
                     out[i] = self._run_stream(reqs[i], plan)
@@ -191,11 +228,13 @@ class PersistencePipeline:
             run_stages(state, cfg, report, stages=(_STAGES_BY_NAME["order"],))
 
         t0 = time.perf_counter()
-        rows = cfg.backend.rows(grid, torch.stack([s.order for s in states]))
-        gfs = scatter_results_batch(grid, *rows, B=B,
-                                    offsets=plan.row_offsets(self.plan_cache))
-        del rows
-        _sync()
+        with maybe_span(current_trace(), "gradient", batch_size=B):
+            rows = cfg.backend.rows(grid,
+                                    torch.stack([s.order for s in states]))
+            gfs = scatter_results_batch(
+                grid, *rows, B=B, offsets=plan.row_offsets(self.plan_cache))
+            del rows
+            _sync()
         dt = (time.perf_counter() - t0) / B
         for state, report, gf in zip(states, reports, gfs):
             rep = report.child("gradient")
@@ -222,7 +261,7 @@ class PersistencePipeline:
         res = DiagramResult(
             diagram, report.flat(), report if req.include_report else None,
             stream=stream, request=strip_field(req), plan=plan,
-            _values_fn=values_fn)
+            trace=report.trace, _values_fn=values_fn)
         # materialize the canonical query arrays now (tiny — critical
         # simplices only) so the result does not pin the field or the
         # dense key tensor for its lifetime

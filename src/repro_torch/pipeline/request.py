@@ -4,13 +4,15 @@ PyTorch counterpart of ``repro.pipeline.request``.  One frozen spec: the
 field (numpy array or torch tensor, flat or ``(nz, ny, nx)``, or an
 out-of-core :class:`~repro_torch.stream.FieldSource`), the grid, the
 homology dimensions, result simplification (``min_persistence`` /
-``top_k``) and execution options (``backend`` / ``sandwich_backend`` /
-streaming chunking / ``n_blocks`` for the sharded streaming engine).
+``top_k``), execution options (``backend`` / ``sandwich_backend`` /
+streaming chunking / ``n_blocks`` for the sharded streaming engine), the
+approximation knobs (``epsilon`` / ``deadline_s`` / ``progressive``,
+answered by :mod:`repro_torch.approx`), the diagram-cache participation
+(``cache``) and per-run tracing (``trace``).
 
-The reference's options for later parts of the port are kept as fields
-so requests read the same, but :meth:`TopoRequest.resolve` raises
-``NotImplementedError`` for them, naming the ROADMAP.md item that
-brings them; none is ever silently ignored.
+The distributed engines are not ported yet: ``distributed=True`` and an
+in-memory ``n_blocks > 1`` make :meth:`TopoRequest.resolve` raise
+``NotImplementedError`` naming the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -27,12 +29,6 @@ from repro_torch.core.grid import Grid
 
 # option -> the ROADMAP.md item that ports it
 _LATER = {
-    "epsilon": "Queue 1 item 7 (approximation)",
-    "deadline_s": "Queue 1 item 7 (approximation)",
-    "progressive": "Queue 1 item 7 (approximation)",
-    "cache": "Queue 1 item 8 (host-side services: cache/)",
-    "trace": "Queue 1 item 8 (host-side services: obs/ exposition and "
-             "per-run traces)",
     "distributed": "Queue 1 item 9 (distributed engines)",
     "n_blocks": "Queue 1 item 9 (distributed engines)",
 }
@@ -89,9 +85,17 @@ class TopoRequest:
         taken only by a streamed request with ``distributed=False`` (the
         reference reads ``n_blocks > 1`` with ``distributed`` unset as a
         request for the distributed engines, which come later).
+    epsilon : guaranteed bottleneck-error budget (field units, >= 0),
+        answered from the coarsest hierarchy level whose bound meets it.
+    deadline_s : wall-clock budget of progressive refinement (the
+        coarsest preview always completes); implies the progressive path.
+    progressive : refine coarse to fine through every hierarchy level;
+        ``run`` returns the final (tightest) result.
+    cache : diagram-cache participation through a cache-enabled
+        ``TopoService``: None participates, False opts out, True requires
+        a cache key (:class:`~repro_torch.cache.CacheKeyError` otherwise).
+    trace : record a span timeline of this run (``result.trace``).
     include_report : attach the :class:`StageReport` to the result.
-    The remaining fields belong to later parts of the port (see
-    ``_LATER``) and must stay unset.
     """
 
     field: Any
@@ -132,6 +136,12 @@ class TopoRequest:
         if self.chunk_budget is not None and self.chunk_budget < 1:
             raise ValueError(
                 f"chunk_budget must be >= 1 byte, got {self.chunk_budget}")
+        if self.epsilon is not None and not self.epsilon >= 0:
+            raise ValueError(
+                f"epsilon must be >= 0 (field units), got {self.epsilon}")
+        if self.deadline_s is not None and not self.deadline_s > 0:
+            raise ValueError(
+                f"deadline_s must be > 0, got {self.deadline_s}")
         if self.homology_dims is not None:
             dims = tuple(int(d) for d in self.homology_dims)
             if not dims:
@@ -149,12 +159,15 @@ class TopoRequest:
         return _is_source(self.field) or self.chunk_z is not None \
             or self.chunk_budget is not None
 
+    @property
+    def is_approx(self) -> bool:
+        """Whether this request routes through ``repro_torch.approx``."""
+        return self.epsilon is not None or self.progressive \
+            or self.deadline_s is not None
+
     def _later_options(self):
         """Names of set options that a later part of the port brings."""
-        unset = {"distributed": (None, False), "progressive": (False,),
-                 "trace": (False,)}
-        later = [k for k in _LATER if k != "n_blocks"
-                 and getattr(self, k) not in unset.get(k, (None,))]
+        later = ["distributed"] if self.distributed else []
         # n_blocks > 1 is the sharded streaming engine when streamed with
         # distributed=False, else a request for the distributed engines
         if (self.n_blocks or 1) > 1 and (self.distributed is None
@@ -214,6 +227,18 @@ class TopoRequest:
         if grid is self.grid:
             return self
         return dataclasses.replace(self, grid=grid)
+
+    def replace(self, **kw) -> "TopoRequest":
+        """``dataclasses.replace`` convenience (requests are frozen)."""
+        return dataclasses.replace(self, **kw)
+
+    def cache_key(self) -> tuple:
+        """The canonical content-addressed cache key of this request
+        (:func:`repro_torch.cache.request_key`); raises
+        :class:`~repro_torch.cache.CacheKeyError` when the field cannot be
+        fingerprinted."""
+        from repro_torch.cache.fingerprint import request_key
+        return request_key(self)
 
     @property
     def field_shape(self) -> tuple:

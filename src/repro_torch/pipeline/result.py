@@ -15,6 +15,12 @@ It serializes to the **DDMS v1 wire format** (``to_bytes`` /
 ``DDMS``, version, grid dims) followed by dtype-tagged named arrays, so a
 payload written by either package decodes in the other.
 
+Approximate results (:mod:`repro_torch.approx`) carry one optional named
+array, ``approx_meta`` = ``[error bound, level, stride, fine nx, ny,
+nz]`` (float64), still wire version 1; decoded payloads answer
+``error_bound`` / ``approx_level`` / ``pairs(certain_only=True)`` like
+live results.
+
 Wire format v1 (all little-endian)::
 
     header:  magic  b"DDMS" | version u16 | grid_ndim u8 | flags u8
@@ -42,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.diagram import Diagram
+from repro_torch.obs.trace import Trace
 from repro_torch.stream.scheduler import StreamReport
 
 from .plan import Plan
@@ -69,6 +76,9 @@ class DiagramResult:
     stream: Optional[StreamReport] = None
     request: Optional[TopoRequest] = None
     plan: Optional[Plan] = None
+    # span timeline of a trace=True run (live results only, not on the
+    # wire); export with ``trace.to_perfetto(path)``
+    trace: Optional[Trace] = field(default=None, repr=False, compare=False)
     _arrays: Dict[str, np.ndarray] = field(default_factory=dict, repr=False)
     # vertex ids (tensor) -> field values (tensor); None once built
     _values_fn: Optional[Callable] = field(default=None, repr=False)
@@ -87,6 +97,39 @@ class DiagramResult:
         if self.plan is not None and self.plan.homology_dims:
             return self.plan.homology_dims
         return tuple(range(self.diagram.grid.dim + 1))
+
+    # -- approximation guarantee (repro_torch.approx) ------------------------
+
+    def _meta(self, i: int):
+        meta = self._arrays.get("approx_meta")
+        return None if meta is None else meta[i]
+
+    @property
+    def error_bound(self) -> Optional[float]:
+        """Guaranteed bottleneck-distance bound to the exact diagram
+        (field units); None for results the approximation engine never
+        touched, 0.0 for a level-0 (exact) result."""
+        b = self._meta(0)
+        return None if b is None else float(b)
+
+    @property
+    def approx_level(self) -> Optional[int]:
+        """Hierarchy level of this result (0 = exact)."""
+        lev = self._meta(1)
+        return None if lev is None else int(lev)
+
+    @property
+    def approx_stride(self) -> Optional[int]:
+        """Decimation stride of the level (``2 ** approx_level``)."""
+        s = self._meta(2)
+        return None if s is None else int(s)
+
+    @property
+    def uncertainty_threshold(self) -> Optional[float]:
+        """``2 * error_bound``: pairs whose value-space persistence is not
+        strictly above it may be diagonal artifacts of the approximation."""
+        b = self.error_bound
+        return None if b is None else 2.0 * b
 
     def _build_arrays(self) -> None:
         """Canonical per-dimension arrays from the live diagram, sorted by
@@ -174,13 +217,23 @@ class DiagramResult:
         return mp, tk
 
     def pairs(self, dim: int = 0, *, min_persistence: Optional[float] = None,
-              top_k: Optional[int] = None, space: str = "value") -> np.ndarray:
+              top_k: Optional[int] = None, space: str = "value",
+              certain_only: bool = False) -> np.ndarray:
         """(n, 2) (birth, death) points of dimension ``dim``, sorted by
         descending persistence (ties by birth).  ``min_persistence`` keeps
         ``death - birth >=`` the threshold, ``top_k`` the k most
         persistent; defaults come from the request, or from the decoded
         ``query_defaults`` wire array (the value-space ``min_persistence``
-        is not applied to order-space queries)."""
+        is not applied to order-space queries).  ``certain_only`` (value
+        space only) also drops the pairs of an approximate result whose
+        persistence is not strictly above its ``uncertainty_threshold``."""
+        certain_thr = None
+        if certain_only:
+            if space != "value":
+                raise ValueError(
+                    "certain_only applies to value-space queries (the "
+                    "error bound is in field units)")
+            certain_thr = self.uncertainty_threshold
         d_mp, d_tk = self._default_queries()
         if min_persistence is None and space == "value":
             min_persistence = d_mp
@@ -190,6 +243,9 @@ class DiagramResult:
         pers = pts[:, 1] - pts[:, 0]
         if min_persistence is not None and min_persistence > 0:
             keep = pers >= min_persistence
+            pts, pers = pts[keep], pers[keep]
+        if certain_thr is not None and certain_thr > 0:
+            keep = pers > certain_thr
             pts, pers = pts[keep], pers[keep]
         idx = np.argsort(-pers, kind="stable")
         if top_k is not None:

@@ -9,6 +9,13 @@ Each link is a stage object operating on a shared :class:`PipelineState`
 of device tensors.  Timings and counters land in a :class:`StageReport`;
 on a CUDA device each stage ends with a synchronize, so its seconds are
 the device work it queued, not the time to enqueue it.
+
+The report is span-backed: a report made while a
+:class:`~repro_torch.obs.trace.Trace` is active on the thread
+(``TopoRequest(trace=True)``) binds to it, and every ``stage()`` records a
+span of the same name that closes after the stage's synchronize, with the
+stage counters as its attributes.  Untraced stages go to the always-on
+flight recorder instead.
 """
 
 from __future__ import annotations
@@ -19,6 +26,9 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import torch
+
+from repro_torch.obs import flight as _flight
+from repro_torch.obs.trace import Trace, current_trace
 
 from repro_torch.core.critical import CriticalInfo
 from repro_torch.core.diagram import Diagram
@@ -35,28 +45,49 @@ def _sync() -> None:
 
 @dataclass
 class StageReport:
-    """Per-stage record: wall time, counters, nested children."""
+    """Per-stage record: wall time, counters, nested children; ``trace``
+    is the run's :class:`Trace` (the thread's active one at construction)
+    or None."""
 
     name: str
     seconds: float = 0.0
     counters: Dict[str, float] = field(default_factory=dict)
     children: List["StageReport"] = field(default_factory=list)
+    trace: Optional[Trace] = field(default=None, repr=False, compare=False)
+
+    def __post_init__(self):
+        if self.trace is None:
+            self.trace = current_trace()
 
     def child(self, name: str) -> "StageReport":
-        r = StageReport(name)
+        r = StageReport(name, trace=self.trace)
         self.children.append(r)
         return r
 
     @contextmanager
     def stage(self, name: str):
-        """Open (and time, up to a device synchronize) a child stage."""
+        """Open (and time, up to a device synchronize) a child stage, and
+        its span when traced."""
         r = self.child(name)
-        t0 = time.perf_counter()
-        try:
-            yield r
-        finally:
-            _sync()
-            r.seconds += time.perf_counter() - t0
+        tr = self.trace
+        if tr is None:
+            t0 = time.perf_counter()
+            try:
+                yield r
+            finally:
+                _sync()
+                dt = time.perf_counter() - t0
+                r.seconds += dt
+                _flight.record_event(name, t0, dt, r.counters or None)
+            return
+        with tr.span(name) as sp:
+            t0 = time.perf_counter()
+            try:
+                yield r
+            finally:
+                _sync()
+                r.seconds += time.perf_counter() - t0
+                sp.args.update(r.counters)
 
     def count(self, **counters) -> None:
         for k, v in counters.items():

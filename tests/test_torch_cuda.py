@@ -1,6 +1,7 @@
 """PyTorch port on a card: both CUDA kernels (and the fused kernel's halo
 entry) bit-equal to the plain PyTorch version, and the pipeline on the
-card (in memory and streamed) equal to the pipeline on the CPU.  Every
+card (in memory, streamed, approximate and served) equal to the pipeline
+on the CPU.  Every
 test here is marked ``cuda`` and skips without a CUDA device; the file
 imports neither jax nor the JAX package, so it runs on a machine that has
 only PyTorch:
@@ -12,14 +13,16 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.approx import Hierarchy, approximate, block_minmax, refine
 from repro_torch.core.gradient import neighbor_orders
 from repro_torch.core.grid import Grid, vertex_order
 from repro_torch.fields.generators import make_field
 from repro_torch.kernels import lower_star as LS
 from repro_torch.kernels import ops, ref
 from repro_torch.pipeline import PersistencePipeline, TopoRequest
-from repro_torch.stream import (ArraySource, pack_value_keys_torch,
-                                plan_chunks)
+from repro_torch.serve import TopoService
+from repro_torch.stream import (ArraySource, MemmapSource,
+                                pack_value_keys_torch, plan_chunks)
 from repro_torch.stream.scheduler import _ext_volume
 
 pytestmark = pytest.mark.cuda
@@ -132,3 +135,70 @@ def test_cuda_stream_matches_cpu_stream(cuda, n_blocks):
     gpu = PersistencePipeline().run(req)
     cpu = PersistencePipeline(device="cpu").run(req)
     assert gpu.to_bytes() == cpu.to_bytes()
+
+
+def _zero_counts():
+    for k in LS.LAUNCHES:
+        LS.LAUNCHES[k] = 0
+    ref.CUDA_CALLS["lower_star_gradient_torch"] = 0
+
+
+@pytest.mark.parametrize("shape", [(33, 17, 9), (1, 6, 11), (1, 1, 13)])
+def test_cuda_block_minmax_matches_cpu(cuda, shape):
+    vol = torch.from_numpy(np.random.default_rng(3).standard_normal(shape)
+                           .astype(np.float32))
+    for s in range(1, 9):
+        for a, b in zip(block_minmax(vol, s), block_minmax(vol, s, "cuda")):
+            assert b.is_cuda and torch.equal(a, b.cpu())
+
+
+def test_cuda_approximate_matches_cpu(cuda, tmp_path):
+    """Every level on the card gives the CPU's payload, through the fused
+    kernel (and its halo entry for a source); the plain version never
+    runs on the card."""
+    dims = (20, 18, 16)
+    f = make_field("isabel", dims, seed=2)
+    req = TopoRequest(field=f, grid=Grid.of(*dims))
+    gpu, cpu = PersistencePipeline(), PersistencePipeline(device="cpu")
+    h = Hierarchy(f, Grid.of(*dims), device="cuda")
+    assert [lv.bound for lv in h.levels] == \
+        [lv.bound for lv in Hierarchy(f, Grid.of(*dims)).levels]
+    _zero_counts()
+    for lv in h.levels:
+        a = approximate(gpu, req, level=lv.level, hierarchy=h)
+        assert a.to_bytes() == approximate(cpu, req,
+                                           level=lv.level).to_bytes()
+    assert LS.LAUNCHES["fused"] == len(h.levels)
+    path = str(tmp_path / "f.raw")
+    src = MemmapSource.write(path, f.reshape(dims[::-1]))
+    a = approximate(gpu, TopoRequest(field=src, chunk_z=4), level=1)
+    assert a.to_bytes() == approximate(gpu, req, level=1).to_bytes()
+    assert LS.LAUNCHES["fused_halo"] >= 1
+    walk = list(refine(gpu, req))
+    assert walk[-1].to_bytes() == cpu.run(
+        req.replace(progressive=True)).to_bytes()
+    assert ref.CUDA_CALLS["lower_star_gradient_torch"] == 0
+
+
+def test_cuda_service_batches_and_caches(cuda):
+    dims = (12, 12, 12)
+    vols = [make_field(n, dims, seed=s).reshape(dims[::-1])
+            for n, s in (("random", 1), ("wavelet", 2), ("isabel", 3))]
+    cpu = PersistencePipeline(device="cpu")
+    with TopoService(cache=True, max_wait_s=0.5) as svc:
+        _zero_counts()
+        futs = [svc.submit(v) for v in vols]
+        got = [f.result(timeout=120) for f in futs]
+        assert LS.LAUNCHES["fused"] == 1 and svc.stats.max_batch == 3
+        _zero_counts()
+        again = [svc.submit(torch.from_numpy(v).cuda()).result(timeout=120)
+                 for v in vols]
+        assert sum(LS.LAUNCHES.values()) == 0
+        assert svc.stats.cache_hits == 3
+        fut = svc.submit(TopoRequest(field=vols[0], progressive=True))
+        assert fut.preview.result(timeout=120).error_bound > 0
+        assert fut.result(timeout=120).error_bound == 0.0
+    for v, a, b in zip(vols, got, again):
+        want = cpu.run(TopoRequest(field=v)).to_bytes()
+        assert a.to_bytes() == b.to_bytes() == want
+    assert ref.CUDA_CALLS["lower_star_gradient_torch"] == 0

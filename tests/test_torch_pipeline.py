@@ -164,13 +164,28 @@ def test_lower_describes_the_plan():
 @pytest.mark.parametrize("option", [
     # streaming is ported; its distributed engines are not
     dict(stream=True, n_blocks=2), dict(chunk_z=2, distributed=True),
-    dict(epsilon=0.1),
-    dict(progressive=True), dict(deadline_s=1.0), dict(trace=True),
-    dict(cache=True), dict(n_blocks=2), dict(distributed=True)])
+    dict(n_blocks=2), dict(distributed=True)])
 def test_later_slice_options_raise(option):
     f = np.zeros((3, 4, 5), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         PersistencePipeline(device="cpu").run(TopoRequest(field=f, **option))
+
+
+@pytest.mark.parametrize("option", [
+    # a deadline long enough never to bind: where the walk stops under a
+    # binding deadline depends on each package's speed, not on the code
+    dict(epsilon=0.1), dict(progressive=True), dict(deadline_s=1e3),
+    dict(trace=True), dict(cache=True)])
+def test_approx_cache_trace_options_match_reference(option):
+    """The options ported with approximation, the cache and tracing run
+    on the CPU and give the reference's payload."""
+    dims = (7, 6, 5)
+    f = make_field("isabel", dims, seed=4)
+    got = _port(f, dims, **option)
+    want = _reference(f, dims, **option)
+    assert got.to_bytes() == want.to_bytes()
+    assert got.error_bound == want.error_bound
+    assert (got.trace is None) == (want.trace is None)
 
 
 def test_request_validation():
@@ -195,7 +210,8 @@ def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
 def test_import_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.pipeline, "
             "repro_torch.kernels.sandwich, repro_torch.kernels.build, "
-            "repro_torch.fields.generators, repro_torch.core.dms\n"
+            "repro_torch.fields.generators, repro_torch.core.dms, "
+            "repro_torch.approx, repro_torch.cache, repro_torch.serve\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\nprint('clean')")
