@@ -27,7 +27,12 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               ``vertex_order``: first, interior and last chunks of 256^3,
               a chunk that is the whole grid (two -1 ghosts), nzl = 1,
               nx = ny = 1, ragged (129, 7, 5) slabs, many tied values and
-              keys above 2^62.
+              keys above 2^62.  And its int32 instantiation on the
+              dense-rank ext volumes of a block ring, as the distributed
+              front-end feeds it (first block with a -1 ghost below, a
+              middle one, the last with a -1 ghost above): ``isabel``
+              256^3 in 8 blocks, 64x48x40 in 8, odd shapes (3 blocks of
+              33x17x3, 20 one-plane blocks, nx = ny = 1, ragged 129x7).
 3. main     — the main path: ``PersistencePipeline().run`` on ``isabel``
               256^3 and ``random`` 128^3 through the ``fused`` kernel, and
               the ``prepass`` backend on ``random`` 128^3 as its
@@ -50,7 +55,29 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               over ``FunctionSource.synthetic("random", 512^3)`` with the
               default 64 MiB chunk budget (critical counts with Euler
               characteristic 1).  Nothing here is caught.
-5. approx   — approximation at ``isabel`` 256^3: the ``Hierarchy`` on
+5. dist     — the distributed engines on the one card, every block on
+              it (``LocalRing``): ``run_front`` on ``isabel`` 256^3 in 8
+              blocks through the halo entry, with the sample sort (int32
+              ranks; the slack doubled while a bucket overflows, logged)
+              and with rank-free keys: no overflow, nothing unresolved,
+              ranks equal to ``vertex_order``, critical counts and the D0
+              and dual triplet sets equal to the in-memory front-end's
+              (``build_d0_graph`` / ``build_dual_graph_chase`` on the fused
+              gradient); ``prepass`` with ``overlap_comm`` on and off at
+              128^3 (equal); the ``shardmap`` backend at 256^3
+              (``homology_dims=(0,)``), payload equal to ``fused``'s;
+              ``pairing_fixpoint`` on the 256^3 D0 and dual graphs, equal
+              to ``pair_extrema_saddles_kernel``; and the whole
+              ``distributed=True`` path on ``random`` 32^3 and ``isabel``
+              64^3 in 8 blocks (the host token D1 bounds the size),
+              payloads equal to the sequential runs'.  Per-step seconds
+              (each ending in a synchronize), ring rotations, bucket peak,
+              buffer sizes and peak device memory are logged; the launch
+              counters are zeroed before the distributed runs and read
+              after (halo entry 24, prepass 32, fused 2, the plain
+              version 0).  ``GroupRing`` (one block per rank over NCCL)
+              needs two cards and is not run here.
+6. approx   — approximation at ``isabel`` 256^3: the ``Hierarchy`` on
               the card (levels, dims and bounds equal to the CPU's; the
               level-1 ``block_minmax`` and the cascade timed beside their
               byte bounds and beside ``max_pool3d``), ``approximate`` at
@@ -65,16 +92,16 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               payload.  Launch counters zeroed just before and read just
               after: the fused kernel once per level, the plain version
               never on the card.
-6. serve    — ``TopoService(cache=True)`` on the card: four same-shape
+7. serve    — ``TopoService(cache=True)`` on the card: four same-shape
               64^3 fields from client threads in one batched dispatch
               (equal to ``run``), resubmitted as cache hits that launch no
               kernel, a progressive 256^3 submit with ``deadline_s``
               (preview first), a later ``epsilon`` submit served from the
               refined entry, a traced request (one span per stage), a
               ``wire=True`` payload, and ``stats_payload``.
-7. cpu      — diagrams on the card equal those on the CPU (32^3 wavelet,
+8. cpu      — diagrams on the card equal those on the CPU (32^3 wavelet,
               32^3 random, a thin 2-D grid).
-8. timing   — CUDA-event times of ``fused`` and ``prepass`` at 256^3
+9. timing   — CUDA-event times of ``fused`` and ``prepass`` at 256^3
               (``isabel``, ``random``) and 512^3 (``random``) and of the
               plain version at 256^3, each beside its bound (the longer of
               its bytes over 3.35 TB/s and the integer operations the
@@ -89,7 +116,7 @@ The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script prints no result and exits non-zero.
 
-``--timing-of DIR`` runs only phase 8 (without the plain version) on the
+``--timing-of DIR`` runs only phase 9 (without the plain version) on the
 port in another tree DIR, for instance the parent commit unpacked with
 ``git archive`` into a git-ignored directory; it prints no result lines.
 To compare two trees, time them in turns in one call on one card (A, B,
@@ -412,6 +439,62 @@ def phase_halo_kernels(isabel_256):
             del ext, got, plain, sl
         del f, keys, whole
     torch.cuda.empty_cache()
+    return max(max_err, halo_ring(isabel_256))
+
+
+def _ring_ext(o3, b, n_blocks):
+    """The (nzl+2, ny, nx) ext volume of block ``b`` of a ring of
+    ``n_blocks`` z-slabs of the order volume ``o3``: the neighbours'
+    boundary planes as ghosts, -1 below the first block and above the
+    last (what the distributed front-end's halo exchange builds)."""
+    import torch
+    nzl = o3.shape[0] // n_blocks
+    z0, z1 = b * nzl, (b + 1) * nzl
+    none = torch.full_like(o3[0], -1)
+    return torch.cat([(o3[z0 - 1] if b > 0 else none)[None], o3[z0:z1],
+                      (o3[z1] if b < n_blocks - 1 else none)[None]])
+
+
+def halo_ring(isabel_256):
+    """The halo entry's int32 instantiation (``ls_fused_halo_i32``) on the
+    ext volumes of a block ring of dense ranks, as the distributed
+    front-end feeds it: the first block (a -1 ghost below), a middle one
+    (data on both sides) and the last (a -1 ghost above), bit-equal to the
+    plain version on the same int32 volume and to the whole-grid fused
+    rows of the same slab."""
+    import torch
+    from repro_torch.core.grid import Grid, vertex_order
+    from repro_torch.kernels import lower_star as LS
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    # (dims, blocks): isabel 256^3 in 8 blocks, then odd shapes
+    cases = [((256, 256, 256), 8), ((64, 48, 40), 8), ((33, 17, 9), 3),
+             ((40, 30, 20), 20), ((1, 1, 300), 4), ((129, 7, 6), 3)]
+    max_err = 0
+    for dims, nb in cases:
+        g = Grid.of(*dims)
+        f = torch.from_numpy(isabel_256).cuda() if dims[0] == 256 \
+            else torch.randn(g.nv, generator=gen, device="cuda")
+        o = vertex_order(f)
+        whole = LS.fused_lower_star_gradient(g, o)
+        o3 = o.reshape(g.dims[::-1])
+        nvl = g.nv // nb
+        for b in sorted({0, nb // 2, nb - 1}):
+            ext = _ring_ext(o3, b, nb).to(torch.int32)
+            got = LS.fused_rows_from_halo_volume(ext, rank_bound=g.nv)
+            plain = ref.lower_star_gradient_torch(
+                *LS.halo_owned_neighbors(ext), rank_bound=g.nv)
+            sl = tuple(t[b * nvl:(b + 1) * nvl] for t in whole)
+            torch.cuda.synchronize()
+            err = max(_rows_equal(got, plain), _rows_equal(got, sl))
+            max_err = max(max_err, err)
+            log("kernels", entry="halo ring", dims=dims, blocks=nb, block=b,
+                ranks=str(ext.dtype).split(".")[-1],
+                ghosts=("data" if b > 0 else "-1",
+                        "data" if b < nb - 1 else "-1"), max_abs_err=err)
+            del ext, got, plain, sl
+        del f, o, o3, whole
+    torch.cuda.empty_cache()
     return max_err
 
 
@@ -647,6 +730,254 @@ def phase_stream(fields, results):
     del out
     torch.cuda.empty_cache()
     return halo_launches
+
+
+def _triplet_rows(saddles, t0, t1):
+    """(n, 3) rows (saddle, min(t0, t1), max(t0, t1)) of the triplets
+    whose ends differ, sorted lexicographically."""
+    import torch
+    saddles, t0, t1 = saddles.long(), t0.long(), t1.long()
+    keep = t0 != t1
+    rows = torch.stack([saddles[keep], torch.minimum(t0, t1)[keep],
+                        torch.maximum(t0, t1)[keep]], 1)
+    for c in (2, 1, 0):
+        rows = rows[torch.argsort(rows[:, c], stable=True)]
+    return rows
+
+
+def _front_oracle(f, dims):
+    """The in-memory (one block) front-end of the same field: vertex
+    order, critical counts, and the D0 and dual triplet rows of
+    ``build_d0_graph`` and ``build_dual_graph_chase`` on the fused
+    kernel's gradient."""
+    from repro_torch.core.extremum_graph import build_d0_graph
+    from repro_torch.core.gradient import scatter_results_batch
+    from repro_torch.core.grid import Grid, vertex_order
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.sandwich import (build_dual_graph_chase,
+                                              extract_critical_kernel)
+    g = Grid.of(*dims)
+    o = vertex_order(f)
+    [gf] = scatter_results_batch(g, *ops.lower_star_gradient(g, o))
+    ci = extract_critical_kernel(g, gf, o)
+    g0 = build_d0_graph(g, gf, ci)
+    gD = build_dual_graph_chase(g, gf, ci, ci.crit_sids[2])
+    ncrit = [int(gf.crit[k].sum()) for k in range(4)]
+    return dict(order=o, ncrit=ncrit, g0=g0, gD=gD,
+                d0=_triplet_rows(g0.saddles, g0.t0, g0.t1),
+                dual=_triplet_rows(gD.saddles, gD.t0, gD.t1))
+
+
+def _check_front(out, oracle, dims, rank_free, what):
+    """run_front's outputs against the in-memory oracle: no overflow,
+    everything resolved, ranks (or the key order), critical counts, and
+    the D0 and dual triplet sets as sorted tensors."""
+    import torch
+    from repro_torch.distributed import front_triplets
+    if bool(out["overflow"]) or int(out["unresolved"]):
+        raise AssertionError(f"{what}: overflow {bool(out['overflow'])}, "
+                             f"unresolved {int(out['unresolved'])}")
+    ranks = out["ranks"]
+    if rank_free:
+        perm = torch.argsort(ranks)
+        dense = torch.empty_like(perm)
+        dense[perm] = torch.arange(len(perm), device=perm.device)
+        ranks = dense
+    if not torch.equal(ranks, oracle["order"]):
+        raise AssertionError(f"{what}: ranks differ from vertex_order")
+    if out["ncrit"].tolist() != oracle["ncrit"]:
+        raise AssertionError(f"{what}: critical counts "
+                             f"{out['ncrit'].tolist()} != {oracle['ncrit']}")
+    (sid0, _, t0, t1), (sidd, _, s0, s1) = front_triplets(dims, out)
+    if not torch.equal(_triplet_rows(sid0, t0, t1), oracle["d0"]):
+        raise AssertionError(f"{what}: D0 triplets differ")
+    if not torch.equal(_triplet_rows(sidd, s0, s1), oracle["dual"]):
+        raise AssertionError(f"{what}: dual triplets differ")
+
+
+def _run_front_logged(what, dims, f, n_blocks, **kw):
+    """run_front with its per-step seconds, ring rotations, sample-sort
+    bucket peak, buffer sizes and peak device memory logged."""
+    import torch
+    from repro_torch.distributed import run_front
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    cfg, out = run_front(dims, f, n_blocks, stats=stats, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    log("dist", run_front=what, dims=dims, blocks=n_blocks,
+        seconds=round(secs, 4),
+        steps={k: round(v, 4) for k, v in stats["steps"].items()},
+        ring_rotations=stats["ring_rotations"],
+        sort_slack=stats.get("sort_slack"), sort_percap=stats.get(
+            "sort_percap"), sort_bucket_peak=stats.get("sort_bucket_peak"),
+        buffers=stats["buffers"], crit_capacity=cfg.crit_capacity,
+        crit_peak=int(out["crit_peak"]),
+        peak_device_bytes=torch.cuda.max_memory_allocated(),
+        smi=nvidia_smi_line())
+    return out, stats, secs
+
+
+def phase_dist(isabel_256, n=256):
+    """The distributed engines on the one card (``LocalRing``: all blocks
+    on one device).  (a) ``run_front`` on ``isabel`` 256^3 in 8 blocks
+    with the fused kernel's halo entry, sample-sorted (int32 ranks) and
+    rank-free (int64 keys), against the in-memory front-end; ``prepass``
+    with ``overlap_comm`` on and off at 128^3; (b) the ``shardmap``
+    backend at 256^3, payload equal to ``fused``'s; (c)
+    ``pairing_fixpoint`` on the 256^3 D0 and dual graphs, equal to
+    ``pair_extrema_saddles_kernel``; (d) the whole ``distributed=True``
+    path on ``random`` 32^3 and ``isabel`` 64^3 (the host token D1 bounds
+    the size), payloads equal to the sequential runs'.  The launch
+    counters are zeroed just before the distributed runs and read just
+    after; returns them."""
+    import torch
+    from repro_torch.core.grid import Grid
+    from repro_torch.distributed.pairing_rounds import pairing_fixpoint
+    from repro_torch.fields.generators import make_field
+    from repro_torch.kernels import lower_star as LS
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.sandwich import pair_extrema_saddles_kernel
+    from repro_torch.pipeline import PersistencePipeline, TopoRequest
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    dims = (n, n, n)
+    nb = 8
+    f = torch.from_numpy(isabel_256).cuda()
+    oracle = _front_oracle(f, dims)
+    h = n // 2
+    f_h = torch.from_numpy(make_field("isabel", (h, h, h), seed=SEED)).cuda()
+    oracle_h = _front_oracle(f_h, (h, h, h))
+    req0 = TopoRequest(field=isabel_256, grid=Grid.of(*dims),
+                       homology_dims=(0,))
+    want0 = PersistencePipeline().run(req0)
+    small = [(name, d, make_field(name, d, seed=SEED))
+             for name, d in (("random", (32, 32, 32)),
+                             ("isabel", (64, 64, 64)))]
+    seq = {name: PersistencePipeline().run(TopoRequest(field=fs,
+                                                       grid=Grid.of(*d)))
+           for name, d, fs in small}
+    torch.cuda.synchronize()
+
+    _zero_counts()
+    # (a) the front-end at full width: sample sort at the default slack,
+    # doubled while a bucket overflows (logged), then rank-free keys
+    slack = 2.0
+    while True:
+        out, stats, _ = _run_front_logged("fused, sample sort", dims, f, nb,
+                                          sort_slack=slack)
+        if not bool(out["overflow"]) or slack >= 64:
+            break
+        log("dist", overflow_at_slack=slack,
+            bucket_peak=stats["sort_bucket_peak"], retry=2 * slack)
+        slack *= 2
+        _zero_counts()
+    sort_out = out
+    rf_out, _, _ = _run_front_logged("fused, rank-free", dims, f, nb,
+                                     use_sample_sort=False)
+    pre = {}
+    for ov in (True, False):
+        pre[ov], _, _ = _run_front_logged(
+            f"prepass, overlap_comm={ov}", (h, h, h), f_h, nb,
+            gradient_backend="prepass", overlap_comm=ov, sort_slack=slack)
+    # (b) the shardmap backend
+    t0 = time.perf_counter()
+    got0 = PersistencePipeline("shardmap", n_blocks=nb).run(req0)
+    shard_s = time.perf_counter() - t0
+    # (d) the whole distributed path
+    dist = {}
+    for name, d, fs in small:
+        t0 = time.perf_counter()
+        dist[name] = (PersistencePipeline(n_blocks=nb).run(
+            TopoRequest(field=fs, grid=Grid.of(*d))),
+            time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    launches = dict(LS.LAUNCHES)
+    plain = ref.CUDA_CALLS["lower_star_gradient_torch"]
+    want = {"fused": len(small), "prepass": 3 * nb + nb,
+            "fused_halo": 3 * nb}
+    log("dist", launches=launches, expected=want, plain_on_card=plain)
+    if launches != want or plain:
+        raise AssertionError(f"distributed launches {launches} (plain "
+                             f"{plain}), want {want} and no plain version")
+
+    _check_front(sort_out, oracle, dims, False, "run_front sample sort")
+    _check_front(rf_out, oracle, dims, True, "run_front rank-free")
+    for ov in (True, False):
+        _check_front(pre[ov], oracle_h, (h, h, h), False,
+                     f"prepass overlap_comm={ov}")
+    for k in pre[True]:
+        if not torch.equal(pre[True][k], pre[False][k]):
+            raise AssertionError(f"overlap_comm on/off differ in {k}")
+    log("dist", front="isabel", dims=dims, blocks=nb, equals_in_memory=True,
+        rank_free_equals=True, prepass_overlap_equal=True)
+    del sort_out, rf_out, pre, out
+
+    # the halo entry's int32 instantiation at the distributed shape: one
+    # middle block's ext volume (CUDA events), beside its bound
+    plane = n * n
+    ext = _ring_ext(oracle["order"].reshape(n, n, n), nb // 2, nb).to(
+        torch.int32)
+    rows = LS.fused_rows_from_halo_volume(ext, rank_bound=n ** 3)
+    work = pairing_work(rows[0], rows[2])
+    del rows
+    work["bytes"] = io_bytes(n // nb * plane, 4, False, ghosts=2 * plane)
+    ms = cuda_ms(lambda: LS.fused_rows_from_halo_volume(
+        ext, rank_bound=n ** 3), reps=5)
+    bms, by = bound_ms(work)
+    log("dist", timing="fused_halo int32", dims=tuple(ext.shape),
+        block=nb // 2, ms=ms, bound_ms=bms, bound_by=by, bytes=work["bytes"],
+        ops=work["ops"], pops_per_vertex=work["pops_per_vertex"], smi=smi)
+    del ext
+
+    same = got0.to_bytes() == want0.to_bytes()
+    log("dist", backend="shardmap", dims=dims, blocks=nb, homology_dims=(0,),
+        seconds=round(shard_s, 4), payload_equals_fused=same,
+        stages=_stage_line(got0))
+    if not same:
+        raise AssertionError("shardmap payload differs from fused")
+
+    # (c) the pairing rounds at full width
+    for gname in ("g0", "gD"):
+        graph = oracle[gname]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p, st = pairing_fixpoint(graph, collect_stats=True)
+        torch.cuda.synchronize()
+        fix_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        k = pair_extrema_saddles_kernel(graph)
+        torch.cuda.synchronize()
+        kern_s = time.perf_counter() - t0
+        same = all(torch.equal(getattr(p, a), getattr(k, a))
+                   for a in ("saddles", "extrema", "unpaired"))
+        log("dist", pairing_fixpoint=gname, dims=dims,
+            triplets=len(graph.saddles), pairs=len(p.saddles),
+            rounds=st.rounds, proposals=st.proposals,
+            corrections=st.corrections, seconds=round(fix_s, 4),
+            kernel_seconds=round(kern_s, 4), equals_kernel=same)
+        if not same:
+            raise AssertionError(f"pairing_fixpoint differs on {gname}")
+
+    for name, d, _ in small:
+        res, secs = dist[name]
+        same = res.to_bytes() == seq[name].to_bytes()
+        log("dist", distributed=name, dims=d, blocks=nb,
+            seconds=round(secs, 4), payload_equals_sequential=same,
+            sequential_seconds=round(seq[name].stats["d1"], 4),
+            **{k: res.stats.get(k) for k in (
+                "d0_rounds", "d0_corrections", "d_top_rounds", "d1_rounds",
+                "d1_token_hops", "d1_expansions", "d1_merges",
+                "d1_steals")}, stages=_stage_line(res))
+        if not same:
+            raise AssertionError(f"distributed {name} {d} differs from "
+                                 f"the sequential payload")
+    log("dist", seconds=round(time.perf_counter() - t_phase, 3), smi=smi)
+    del oracle, oracle_h, f, f_h
+    torch.cuda.empty_cache()
+    return launches
 
 
 # budget of the dense bottleneck check: an (n x m) float64 distance matrix
@@ -979,10 +1310,14 @@ def phase_serve(fields, n=256):
         doc = traced.trace.to_dict()
         validate_trace_events(doc)
         spans = [e["name"] for e in doc["traceEvents"] if e["ph"] == "X"]
-        log("serve", traced=True, spans=spans,
+        # one span per stage; D0 / D1 round spans nest inside them
+        rounds = {n: spans.count(n) for n in ("d0_round", "d1_round")}
+        stages = [n for n in spans if n not in rounds]
+        log("serve", traced=True, spans=stages, round_spans=rounds,
+            d1_rounds=traced.stats.get("d1_rounds"),
             equals_run=traced.to_bytes() == want[0])
-        if spans != list(traced.plan.stage_names) or \
-                traced.to_bytes() != want[0]:
+        if stages != list(traced.plan.stage_names) or \
+                traced.to_bytes() != want[0] or not rounds["d0_round"]:
             raise AssertionError(f"traced run spans {spans}")
         stats = json.loads(stats_payload(svc))
         log("serve", stats=json.dumps(stats, sort_keys=True))
@@ -1184,6 +1519,7 @@ def main(argv):
     launches, fields, results = phase_main(isabel)
     phase_gradient(isabel)
     halo_launches = phase_stream(fields, results)
+    dist_launches = phase_dist(isabel)
     phase_approx(fields, results)
     del results
     phase_serve(fields)
@@ -1197,7 +1533,8 @@ def main(argv):
             "name": f"{key}_lower_star", "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": f"src/repro/kernels/lower_star.py:{line}",
-            "launches": launches[key], "max_abs_err": max_err,
+            "launches": launches[key] + dist_launches[key],
+            "max_abs_err": max_err,
             "ms": r["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": None})
@@ -1206,7 +1543,8 @@ def main(argv):
         "name": "fused_lower_star_halo", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused.cu",
         "replaces": "src/repro/kernels/lower_star.py:325",
-        "launches": halo_launches, "max_abs_err": halo_err,
+        "launches": halo_launches + dist_launches["fused_halo"],
+        "max_abs_err": halo_err,
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None})
     log("done", seconds=round(time.perf_counter() - t_start, 1))

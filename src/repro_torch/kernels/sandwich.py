@@ -26,6 +26,7 @@ The positive-highest-edge invariant raises :class:`GradientInvariantError`.
 from __future__ import annotations
 
 import heapq
+from contextlib import nullcontext
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -39,6 +40,8 @@ from repro_torch.core.pairing import ExtremaPairs
 from repro_torch.core.saddle_saddle import SaddleSaddlePairs
 from repro_torch.core.tracing import (OMEGA, _exit_cofacet, resolve_chase,
                                       resolve_doubling, tet_successors)
+from repro_torch.obs.metrics import global_metrics
+from repro_torch.obs.trace import current_trace, maybe_span
 
 NOKEY = int(np.iinfo(np.int64).max)    # "unassigned" representative tag
 CUDA_BATCH = 1 << 20                   # D1 wavefront columns per batch
@@ -142,7 +145,8 @@ def _compact_nodes(t0: torch.Tensor, t1: torch.Tensor):
 def _d0_round(c0, c1, skey, ekey, rep, repkey):
     """One self-correcting round: age-filtered find (follow rep links only
     while the assigning saddle is older), per-triplet proposals, and an
-    oldest-saddle-wins rebuild by scatter-min."""
+    oldest-saddle-wins rebuild by scatter-min.  Returns the new (rep,
+    repkey, pair) and the proposal mask."""
     m = len(rep)
     cur = torch.stack([c0, c1], dim=1)
     while True:
@@ -165,35 +169,57 @@ def _d0_round(c0, c1, skey, ekey, rep, repkey):
     new_repkey[tgt] = skey[is_win]
     new_pair = torch.full_like(rep, -1)
     new_pair[tgt] = _arange(len(skey), skey)[is_win]
-    return new_rep, new_repkey, new_pair
+    return new_rep, new_repkey, new_pair, prop
 
 
-def pair_extrema_saddles_kernel(g: ExtremumGraph) -> ExtremaPairs:
-    """Elder-rule pairing as a pointer-jumping fixpoint (same result as the
-    sequential ``pair_extrema_saddles``)."""
+def _fixpoint_init(g: ExtremumGraph):
+    """Compact nodes, saddle and extremum keys and the empty state (rep,
+    repkey, pair) of the D0 fixpoint on a non-empty graph."""
     dev = g.saddles.device
-    n = len(g.saddles)
-    if n == 0:
-        z = torch.zeros(0, dtype=torch.int64, device=dev)
-        return ExtremaPairs(z, z, z)
     nodes, c0, c1, ne = _compact_nodes(g.t0.long(), g.t1.long())
     m = ne + 1                                   # + the OMEGA slot
-    skey = _arange(n, c0)
+    skey = _arange(len(g.saddles), c0)
     ekey = torch.empty(m, dtype=torch.int64, device=dev)
     ekey[:ne] = g.ext_key.long()[nodes]
     ekey[ne] = -(2 ** 62)                        # OMEGA: oldest, never dies
     rep = _arange(m, c0)
     repkey = torch.full((m,), NOKEY, dtype=torch.int64, device=dev)
     pair = torch.full((m,), -1, dtype=torch.int64, device=dev)
+    return nodes, c0, c1, ne, skey, ekey, rep, repkey, pair
+
+
+def _no_pairs(g: ExtremumGraph) -> ExtremaPairs:
+    z = torch.zeros(0, dtype=torch.int64, device=g.saddles.device)
+    return ExtremaPairs(z, z, z)
+
+
+def pair_extrema_saddles_kernel(g: ExtremumGraph) -> ExtremaPairs:
+    """Elder-rule pairing as a pointer-jumping fixpoint (same result as the
+    sequential ``pair_extrema_saddles``)."""
+    if len(g.saddles) == 0:
+        return _no_pairs(g)
+    nodes, c0, c1, ne, skey, ekey, rep, repkey, pair = _fixpoint_init(g)
+    tr = current_trace()
+    n_rounds = 0
     while True:
-        new_rep, new_repkey, new_pair = _d0_round(c0, c1, skey, ekey, rep,
-                                                  repkey)
+        n_rounds += 1
+        with maybe_span(tr, "d0_round", round=n_rounds):
+            new_rep, new_repkey, new_pair, _ = _d0_round(c0, c1, skey, ekey,
+                                                         rep, repkey)
         if torch.equal(new_rep, rep) and torch.equal(new_pair, pair) \
                 and torch.equal(new_repkey, repkey):
             break
         rep, repkey, pair = new_rep, new_repkey, new_pair
+    global_metrics().counter("pairing.d0_rounds").inc(n_rounds)
+    return _extrema_pairs(g, nodes, pair, ne)
+
+
+def _extrema_pairs(g: ExtremumGraph, nodes: torch.Tensor, pair: torch.Tensor,
+                   ne: int) -> ExtremaPairs:
+    """The pairs of a converged fixpoint: extremum ``nodes[e]`` dies at
+    saddle ``pair[e]`` (-1: unpaired), in extremum order."""
     e_idx = torch.nonzero(pair[:ne] >= 0).reshape(-1)
-    mask = torch.ones(ne, dtype=torch.bool, device=dev)
+    mask = torch.ones(ne, dtype=torch.bool, device=pair.device)
     mask[e_idx] = False
     return ExtremaPairs(g.saddles.long()[pair[e_idx]], nodes[e_idx],
                         nodes[mask])
@@ -448,91 +474,95 @@ class _Wavefront:
         nlen = torch.full((C,), 3, dtype=torch.int64, device=dev)
         live = 3 * C
         active = torch.ones(C, dtype=torch.bool, device=dev)
+        tr = current_trace()
         while True:
             idx = torch.nonzero(active).reshape(-1)
             if len(idx) == 0:
                 break
             self.rounds += 1
-            # -- retirement: column vanished -> essential 2-class --------
-            empty = nlen[idx] == 0
-            if bool(empty.any()):
-                active[idx[empty]] = False
-                idx = idx[~empty]
-                if len(idx) == 0:
-                    continue
-            piv = pool[start[idx] + nlen[idx] - 1]    # highest edge
-            # -- classify the live pivots -------------------------------
-            up = self.pair_up1[piv]
-            expand = up >= 0
-            crit = ~expand
-            ex_rows = idx[expand]
-            mg_rows = idx[:0]
-            mg_hold = idx[:0]
-            if bool(crit.any()):
-                bad = ~self.is_c1[piv[crit]]
-                if bool(bad.any()):
-                    raise _invariant_error(int(piv[crit][bad][0]))
-                # -- critical pivots: merge / contest -------------------
-                crit_rows = idx[crit]
-                cpiv = piv[crit]
-                holder = claim[cpiv]             # global index or -1
-                mine = crit_rows + lo
-                merge = (holder >= 0) & (holder < mine)
-                contest = ~merge                 # unclaimed, or stealable
-                if bool(contest.any()):
-                    # contest winner per pivot: the lowest global index
-                    cand_rows = crit_rows[contest]
-                    cand_piv = cpiv[contest]
-                    win[cand_piv] = NOKEY        # reset only touched slots
-                    win.scatter_reduce_(0, cand_piv, cand_rows + lo, "amin")
-                    is_win = win[cand_piv] == cand_rows + lo
-                    wrows = cand_rows[is_win]
-                    wpiv = cand_piv[is_win]
-                    # steal: the displaced (younger) holder reopens; next
-                    # round it sees the new claim and merges the winner
-                    old = claim[wpiv]
-                    reopen = old[(old >= lo) & (old < hi)]
-                    if len(reopen):
-                        active[reopen - lo] = True
-                        pair_edge[reopen] = -1
-                    claim[wpiv] = wrows + lo
-                    pair_edge[wrows + lo] = wpiv
-                    active[wrows] = False        # provisionally retired
-                mg_rows = crit_rows[merge]
-                mg_hold = claim[cpiv[merge]]     # read after the steals
-            op_rows = torch.cat([ex_rows, mg_rows])
-            if len(op_rows) == 0:
-                continue                         # contest losers wait
-            self.expansions += len(op_rows)
-            # -- XOR: an expansion adds the 3 faces of its paired
-            # triangle, a merge the holder's whole boundary -------------
-            gi, seg = _segments(start[op_rows], nlen[op_rows])
-            cc = [op_rows[seg], ex_rows.repeat_interleave(3)]
-            ce = [pool[gi], self.faces_of(up[expand]).reshape(-1)]
-            if len(mg_hold):
-                for sel, s_start, s_len, src in self._holder_segments(
-                        mg_hold, lo, start, nlen, pool):
-                    hg, hseg = _segments(s_start, s_len)
-                    cc.append(mg_rows[sel][hseg])
-                    ce.append(src[hg])
-            cc, ce = torch.cat(cc), torch.cat(ce)
-            p = _by_col_key(cc, erank[ce])
-            cc, ce = cc[p], ce[p]
-            # mod-2: an edge twice in one column (at most twice: the
-            # operands are sets) cancels
-            eq = (cc[1:] == cc[:-1]) & (ce[1:] == ce[:-1])
-            rm = torch.zeros(len(cc), dtype=torch.bool, device=dev)
-            rm[1:] |= eq
-            rm[:-1] |= eq
-            cc, ce = cc[~rm], ce[~rm]
-            counts = torch.bincount(cc, minlength=C)
-            first = torch.cumsum(counts, 0) - counts
-            start[op_rows] = len(pool) + first[op_rows]
-            nlen[op_rows] = counts[op_rows]
-            live += len(ce) - len(gi)
-            pool = torch.cat([pool, ce])
-            if len(pool) > 2 * live + 4096:
-                pool, start = self._compact(pool, start, nlen)
+            with (tr.span("d1_round", round=self.rounds) if tr is not None
+                  else nullcontext()):
+                # -- retirement: column vanished -> essential 2-class --------
+                empty = nlen[idx] == 0
+                if bool(empty.any()):
+                    active[idx[empty]] = False
+                    idx = idx[~empty]
+                    if len(idx) == 0:
+                        continue
+                piv = pool[start[idx] + nlen[idx] - 1]    # highest edge
+                # -- classify the live pivots -------------------------------
+                up = self.pair_up1[piv]
+                expand = up >= 0
+                crit = ~expand
+                ex_rows = idx[expand]
+                mg_rows = idx[:0]
+                mg_hold = idx[:0]
+                if bool(crit.any()):
+                    bad = ~self.is_c1[piv[crit]]
+                    if bool(bad.any()):
+                        raise _invariant_error(int(piv[crit][bad][0]))
+                    # -- critical pivots: merge / contest -------------------
+                    crit_rows = idx[crit]
+                    cpiv = piv[crit]
+                    holder = claim[cpiv]             # global index or -1
+                    mine = crit_rows + lo
+                    merge = (holder >= 0) & (holder < mine)
+                    contest = ~merge                 # unclaimed, or stealable
+                    if bool(contest.any()):
+                        # contest winner per pivot: the lowest global index
+                        cand_rows = crit_rows[contest]
+                        cand_piv = cpiv[contest]
+                        win[cand_piv] = NOKEY    # reset only touched slots
+                        win.scatter_reduce_(0, cand_piv, cand_rows + lo,
+                                            "amin")
+                        is_win = win[cand_piv] == cand_rows + lo
+                        wrows = cand_rows[is_win]
+                        wpiv = cand_piv[is_win]
+                        # steal: the displaced (younger) holder reopens; next
+                        # round it sees the new claim and merges the winner
+                        old = claim[wpiv]
+                        reopen = old[(old >= lo) & (old < hi)]
+                        if len(reopen):
+                            active[reopen - lo] = True
+                            pair_edge[reopen] = -1
+                        claim[wpiv] = wrows + lo
+                        pair_edge[wrows + lo] = wpiv
+                        active[wrows] = False        # provisionally retired
+                    mg_rows = crit_rows[merge]
+                    mg_hold = claim[cpiv[merge]]     # read after the steals
+                op_rows = torch.cat([ex_rows, mg_rows])
+                if len(op_rows) == 0:
+                    continue                         # contest losers wait
+                self.expansions += len(op_rows)
+                # -- XOR: an expansion adds the 3 faces of its paired
+                # triangle, a merge the holder's whole boundary -------------
+                gi, seg = _segments(start[op_rows], nlen[op_rows])
+                cc = [op_rows[seg], ex_rows.repeat_interleave(3)]
+                ce = [pool[gi], self.faces_of(up[expand]).reshape(-1)]
+                if len(mg_hold):
+                    for sel, s_start, s_len, src in self._holder_segments(
+                            mg_hold, lo, start, nlen, pool):
+                        hg, hseg = _segments(s_start, s_len)
+                        cc.append(mg_rows[sel][hseg])
+                        ce.append(src[hg])
+                cc, ce = torch.cat(cc), torch.cat(ce)
+                p = _by_col_key(cc, erank[ce])
+                cc, ce = cc[p], ce[p]
+                # mod-2: an edge twice in one column (at most twice: the
+                # operands are sets) cancels
+                eq = (cc[1:] == cc[:-1]) & (ce[1:] == ce[:-1])
+                rm = torch.zeros(len(cc), dtype=torch.bool, device=dev)
+                rm[1:] |= eq
+                rm[:-1] |= eq
+                cc, ce = cc[~rm], ce[~rm]
+                counts = torch.bincount(cc, minlength=C)
+                first = torch.cumsum(counts, 0) - counts
+                start[op_rows] = len(pool) + first[op_rows]
+                nlen[op_rows] = counts[op_rows]
+                live += len(ce) - len(gi)
+                pool = torch.cat([pool, ce])
+                if len(pool) > 2 * live + 4096:
+                    pool, start = self._compact(pool, start, nlen)
         pool, start = self._compact(pool, start, nlen)
         # batch done: freeze it (claim holders keep their boundary; every
         # other column has vanished)
@@ -568,6 +598,7 @@ class _Wavefront:
 def _d1_result(order_c2: torch.Tensor, c1: torch.Tensor,
                pair_edge: torch.Tensor, expansions: int,
                rounds: int) -> SaddleSaddlePairs:
+    global_metrics().counter("pairing.d1_rounds").inc(rounds)
     paired = pair_edge >= 0
     pairs = torch.stack([pair_edge[paired], order_c2[paired]], dim=1)
     claimed = torch.isin(c1, pair_edge[paired])

@@ -23,9 +23,16 @@ fresh :class:`~repro_torch.obs.trace.Trace` (``result.trace``).
 Streamed requests (a :class:`~repro_torch.stream.FieldSource` field, or
 ``stream=True``; ``diagram_stream`` is the shim) take the out-of-core
 path instead: the chunked front-end on rank-free (value, vid) keys
-(``repro_torch.stream``; ``n_blocks > 1`` with ``distributed=False``
-runs the sharded engine), the back-end on the dense key tensor as the
-order, and exact ranks only for the vertices the diagram touches.
+(``repro_torch.stream``; ``n_blocks > 1`` runs the sharded engine), the
+back-end on the dense key tensor as the order, and exact ranks only for
+the vertices the diagram touches.
+
+``distributed=True`` (the default when ``n_blocks > 1``) runs the
+distributed back-end: the self-correcting pairing rounds for D0 and the
+dual diagram, and the token-based D1 over ``n_blocks`` z-slabs
+(``repro_torch.distributed``); the ``shardmap`` backend runs the
+distributed front-end's gradient step over those blocks.  The diagrams
+equal the sequential ones.
 """
 
 from __future__ import annotations
@@ -70,11 +77,16 @@ def _back_stage_names(grid_dim: int, homology_dims) -> tuple:
 
 
 class _Config:
-    """What a stage reads: the gradient backend and the sandwich engine."""
+    """What a stage reads: the gradient backend, the sandwich engine and
+    the distributed back-end's knobs."""
 
-    def __init__(self, backend: Backend, sandwich):
+    def __init__(self, backend: Backend, sandwich, plan: Plan):
         self.backend = backend
         self.sandwich = sandwich
+        self.n_blocks = plan.n_blocks
+        self.distributed = plan.distributed
+        self.anticipation = plan.anticipation
+        self.budget = plan.budget
 
 
 class PersistencePipeline:
@@ -84,6 +96,11 @@ class PersistencePipeline:
         ``"torch"``) or a :class:`Backend`; the default for requests that
         name none.
     sandwich_backend : sandwich registry name (``"torch"``).
+    n_blocks : z-slab block count of the distributed engines (and shard
+        count of streamed requests).
+    distributed : run the distributed back-end (self-correcting pairing
+        rounds, token D1); defaults to ``n_blocks > 1``.
+    anticipation, budget : the token D1's knobs (distributed only).
     device : torch device; ``None`` means ``"cuda"``, which must be
         available (pass ``device="cpu"`` to run on the CPU, where the
         kernel backends use the plain PyTorch pairing).
@@ -92,11 +109,20 @@ class PersistencePipeline:
     """
 
     def __init__(self, backend: Union[str, Backend] = "fused", *,
+                 n_blocks: int = 1, distributed: Optional[bool] = None,
+                 anticipation: bool = True, budget: Optional[int] = None,
                  sandwich_backend: str = "torch", device=None,
                  plan_cache: Optional[PlanCache] = None):
         self.backend = backend if isinstance(backend, Backend) \
             else get_backend(backend)
         self.sandwich = get_sandwich_backend(sandwich_backend)
+        if n_blocks < 1:
+            raise ValueError(f"n_blocks must be >= 1, got {n_blocks}")
+        self.n_blocks = n_blocks
+        self.distributed = (n_blocks > 1) if distributed is None \
+            else distributed
+        self.anticipation = anticipation
+        self.budget = budget
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -134,21 +160,39 @@ class PersistencePipeline:
         be = self._get_backend(backend)
         sandwich = get_sandwich_backend(
             req.sandwich_backend or self.sandwich.name).name
+        n_blocks = req.n_blocks if req.n_blocks is not None \
+            else self.n_blocks
+        if req.distributed is not None:
+            distributed = req.distributed
+        elif req.n_blocks is not None:
+            distributed = req.n_blocks > 1
+        else:
+            distributed = self.distributed
         streamed = req.is_stream
         if streamed and not be.caps.streamed:
-            ok = sorted(n for n, b in available_backends().items()
-                        if b.caps.streamed)
-            raise ValueError(
-                f"backend {backend!r} has no streamed kernel; "
-                f"streaming backends: {ok}")
+            if be.caps.sharded:
+                # a sharded backend streams through the sharded streaming
+                # engine: every shard streams its z-slab through the fused
+                # kernel's halo entry, exchanging boundary key planes
+                backend = "fused"
+            else:
+                ok = sorted(n for n, b in available_backends().items()
+                            if b.caps.streamed)
+                raise ValueError(
+                    f"backend {backend!r} has no streamed kernel; "
+                    f"streaming backends: {ok}")
         front = ("gradient", "extract_sort") if streamed \
             else tuple(st.name for st in FRONT_STAGES)
         return Plan(dims=g.dims, backend=backend, sandwich_backend=sandwich,
                     device=str(self.device), homology_dims=hdims,
                     stage_names=front + _back_stage_names(g.dim, hdims),
                     streamed=streamed, chunk_z=req.chunk_z,
-                    chunk_budget=req.chunk_budget,
-                    n_blocks=req.n_blocks or 1, epsilon=req.epsilon,
+                    chunk_budget=req.chunk_budget, n_blocks=n_blocks,
+                    distributed=distributed,
+                    anticipation=self.anticipation
+                    if req.anticipation is None else req.anticipation,
+                    budget=self.budget if req.budget is None else req.budget,
+                    epsilon=req.epsilon,
                     deadline_s=req.deadline_s, progressive=req.progressive)
 
     # -- run -------------------------------------------------------------
@@ -219,7 +263,7 @@ class PersistencePipeline:
         """Batched front-end (one rows launch over the stacked batch), then
         per-request back-ends."""
         cfg = _Config(self._get_backend(plan.backend),
-                      get_sandwich_backend(plan.sandwich_backend))
+                      get_sandwich_backend(plan.sandwich_backend), plan)
         grid = reqs[0].grid
         B = len(reqs)
         reports = [StageReport("pipeline") for _ in reqs]
@@ -229,8 +273,8 @@ class PersistencePipeline:
 
         t0 = time.perf_counter()
         with maybe_span(current_trace(), "gradient", batch_size=B):
-            rows = cfg.backend.rows(grid,
-                                    torch.stack([s.order for s in states]))
+            rows = cfg.backend.rows_for(
+                grid, torch.stack([s.order for s in states]), plan.n_blocks)
             gfs = scatter_results_batch(
                 grid, *rows, B=B, offsets=plan.row_offsets(self.plan_cache))
             del rows
@@ -258,6 +302,8 @@ class PersistencePipeline:
     @staticmethod
     def _finish(diagram, report: StageReport, req: TopoRequest, plan: Plan,
                 values_fn=None, stream=None) -> DiagramResult:
+        if plan.distributed:
+            report.count(n_blocks=plan.n_blocks)
         res = DiagramResult(
             diagram, report.flat(), report if req.include_report else None,
             stream=stream, request=strip_field(req), plan=plan,
@@ -286,7 +332,7 @@ class PersistencePipeline:
         from repro_torch.stream import (SparseOrder, diagram_vertices,
                                         sharded_stream_front, stream_front)
         cfg = _Config(self._get_backend(plan.backend),
-                      get_sandwich_backend(plan.sandwich_backend))
+                      get_sandwich_backend(plan.sandwich_backend), plan)
         src = self._source(req)
         grid = req.grid
         chunk_z, chunk_budget = plan.chunk_z, plan.chunk_budget

@@ -5,11 +5,18 @@ PyTorch counterpart of ``repro.pipeline.backends``.
 Gradient backends (a :class:`Backend` bundles ``rows(grid, orders (B, nv))
 -> packed rows`` and derives ``gradient(grid, order) -> GradientField``;
 its :class:`BackendCaps` say what else it offers — ``streamed``: a kernel
-for one halo-extended z-slab, ``kernels.ops.lower_star_rows_halo``):
+for one halo-extended z-slab, ``kernels.ops.lower_star_rows_halo``;
+``sharded``: rows computed per z-slab block, ``rows(grid, orders,
+n_blocks=n)``):
 
-- ``fused``   — the fused CUDA lower-star kernel (default);
-- ``prepass`` — the (nv, 27) gather + the prepass CUDA kernel;
-- ``torch``   — the same gather + the plain PyTorch pairing.
+- ``fused``    — the fused CUDA lower-star kernel (default);
+- ``prepass``  — the (nv, 27) gather + the prepass CUDA kernel;
+- ``torch``    — the same gather + the plain PyTorch pairing;
+- ``shardmap`` — the distributed front-end's gradient step
+  (``distributed.shardmap_pipeline.halo_gradient``) over a
+  :class:`~repro_torch.distributed.LocalRing` of ``n_blocks`` z-slabs on
+  the orders' device: each block exchanges its boundary planes and runs
+  the fused kernel's halo entry on its own vertices.
 
 On the CPU the two kernel backends run the plain version (see
 ``kernels.lower_star``).  Sandwich back-ends: ``torch``, the tensor port
@@ -46,6 +53,7 @@ class BackendCaps:
     """What a gradient backend offers beyond whole-grid rows."""
 
     streamed: bool = False   # kernel takes per-chunk halo key volumes
+    sharded: bool = False    # rows per z-slab block (takes n_blocks=)
 
 
 @dataclass(frozen=True)
@@ -57,8 +65,17 @@ class Backend:
     description: str = ""
     caps: BackendCaps = field(default_factory=BackendCaps)
 
-    def gradient(self, grid: Grid, order: torch.Tensor) -> GradientField:
-        [gf] = GR.scatter_results_batch(grid, *self.rows(grid, order[None]))
+    def rows_for(self, grid: Grid, orders: torch.Tensor,
+                 n_blocks: int = 1) -> tuple:
+        """``rows``, with the block count for a sharded backend."""
+        if self.caps.sharded:
+            return self.rows(grid, orders, n_blocks=n_blocks)
+        return self.rows(grid, orders)
+
+    def gradient(self, grid: Grid, order: torch.Tensor,
+                 n_blocks: int = 1) -> GradientField:
+        [gf] = GR.scatter_results_batch(
+            grid, *self.rows_for(grid, order[None], n_blocks))
         return gf
 
 
@@ -126,6 +143,22 @@ def _rows(kernel: str) -> Callable:
     return rows
 
 
+def _rows_shardmap(grid: Grid, orders: torch.Tensor, n_blocks: int = 1):
+    """Rows of each field from ``halo_gradient`` over a LocalRing of
+    ``n_blocks`` z-slabs (dense vertex orders: the fused kernel's int32
+    halo entry)."""
+    from repro_torch.distributed import FrontConfig, LocalRing
+    from repro_torch.distributed.shardmap_pipeline import halo_gradient
+    cfg = FrontConfig(grid.dims, n_blocks)
+    cfg.nz_local                      # eager divisibility check
+    ring = LocalRing(n_blocks, orders.device)
+    out = []
+    for o in orders.reshape(-1, grid.nv):
+        _, rows = halo_gradient(cfg, ring, o.long().reshape(n_blocks, -1))
+        out.append(tuple(r.flatten(0, 1) for r in rows))
+    return tuple(torch.cat(p) for p in zip(*out))
+
+
 register_backend(Backend(
     name="fused", rows=_rows("fused"), caps=BackendCaps(streamed=True),
     description="fused gather + pairing CUDA kernel (csrc/fused.cu)"))
@@ -135,6 +168,10 @@ register_backend(Backend(
 register_backend(Backend(
     name="torch", rows=_rows("torch"), caps=BackendCaps(streamed=True),
     description="(nv, 27) gather + plain PyTorch pairing"))
+register_backend(Backend(
+    name="shardmap", rows=_rows_shardmap, caps=BackendCaps(sharded=True),
+    description="z-slab blocks with a boundary-plane halo exchange, the "
+                "fused kernel's halo entry per block"))
 
 register_sandwich_backend(SandwichBackend(
     name="torch", extract=extract_critical_kernel,

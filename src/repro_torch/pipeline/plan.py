@@ -3,8 +3,9 @@
 PyTorch counterpart of ``repro.pipeline.plan``.
 ``PersistencePipeline.lower(request)`` resolves a request into a
 :class:`Plan`: backend, sandwich back-end, device, in-memory or streamed
-execution (chunking, shards) and the exact stage chain (stages whose
-outputs the request does not ask for are dropped).
+execution (chunking, shards), the sequential or distributed back-end
+(block count, D1 anticipation and budget) and the exact stage chain
+(stages whose outputs the request does not ask for are dropped).
 Plans are frozen, hashable and inspectable (``describe()``).
 
 PyTorch runs eagerly, so there is no compiled program to bind; the only
@@ -87,7 +88,10 @@ class Plan:
     streamed: bool = False
     chunk_z: Optional[int] = None
     chunk_budget: Optional[int] = None
-    n_blocks: int = 1                     # z-slab shards (streamed only)
+    n_blocks: int = 1                     # z-slab blocks / shards
+    distributed: bool = False             # distributed back-end engines
+    anticipation: bool = True             # token D1 knobs (distributed)
+    budget: Optional[int] = None
     # approximation knobs (repro_torch.approx): recorded so the resolver
     # routes to the hierarchy engine and batches never mix approximate
     # with exact execution
@@ -99,7 +103,8 @@ class Plan:
     def key(self) -> tuple:
         return (self.dims, self.backend, self.sandwich_backend, self.device,
                 self.homology_dims, self.streamed, self.chunk_z,
-                self.chunk_budget, self.n_blocks, self.epsilon,
+                self.chunk_budget, self.n_blocks, self.distributed,
+                self.anticipation, self.budget, self.epsilon,
                 self.deadline_s, self.progressive)
 
     @property
@@ -124,6 +129,7 @@ class Plan:
             mode = "streamed"
         else:
             mode = "in-memory"
+        engine = "distributed" if self.distributed else "sequential"
         approx = ""
         if self.is_approx:
             knobs = [f"epsilon={self.epsilon}"] \
@@ -134,7 +140,7 @@ class Plan:
                 knobs.append(f"deadline_s={self.deadline_s}")
             approx = f", approx({', '.join(knobs)})"
         return (f"Plan(dims={self.dims}, backend={self.backend!r}, "
-                f"{mode} on {self.device}, sequential back-end, "
+                f"{mode} on {self.device}, {engine} back-end, "
                 f"sandwich={self.sandwich_backend!r}, "
                 f"n_blocks={self.n_blocks}, "
                 f"homology_dims={self.homology_dims}{approx}, "

@@ -5,14 +5,10 @@ field (numpy array or torch tensor, flat or ``(nz, ny, nx)``, or an
 out-of-core :class:`~repro_torch.stream.FieldSource`), the grid, the
 homology dimensions, result simplification (``min_persistence`` /
 ``top_k``), execution options (``backend`` / ``sandwich_backend`` /
-streaming chunking / ``n_blocks`` for the sharded streaming engine), the
+streaming chunking / ``n_blocks`` and the distributed engines), the
 approximation knobs (``epsilon`` / ``deadline_s`` / ``progressive``,
 answered by :mod:`repro_torch.approx`), the diagram-cache participation
 (``cache``) and per-run tracing (``trace``).
-
-The distributed engines are not ported yet: ``distributed=True`` and an
-in-memory ``n_blocks > 1`` make :meth:`TopoRequest.resolve` raise
-``NotImplementedError`` naming the ROADMAP.md item that brings them.
 """
 
 from __future__ import annotations
@@ -26,12 +22,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.grid import Grid
-
-# option -> the ROADMAP.md item that ports it
-_LATER = {
-    "distributed": "Queue 1 item 9 (distributed engines)",
-    "n_blocks": "Queue 1 item 9 (distributed engines)",
-}
 
 
 def _is_source(field) -> bool:
@@ -76,15 +66,19 @@ class TopoRequest:
         stages whose outputs are not requested are dropped.
     min_persistence, top_k : default simplification applied by
         :meth:`DiagramResult.pairs` when the caller passes no override.
-    backend, sandwich_backend : ``None`` inherits the pipeline default.
+    backend, sandwich_backend, n_blocks, distributed, anticipation,
+        budget : execution options; ``None`` inherits the pipeline
+        default.  ``n_blocks`` is the z-slab block count of the
+        distributed engines (and the shard count of a streamed request);
+        ``distributed`` selects the distributed back-end (the
+        self-correcting pairing rounds and the token D1).  A request that
+        sets ``n_blocks`` but not ``distributed`` derives ``distributed =
+        n_blocks > 1``, as the pipeline's constructor does.
+        ``anticipation`` and ``budget`` are the token D1's knobs.
     stream : force (True) / forbid (False) the out-of-core path; ``None``
         streams iff the field is a source or a chunk knob is set.
     chunk_z, chunk_budget : streamed decomposition knobs (at most one);
         in a sharded streamed run they apply per shard.
-    n_blocks : z-slab shards of the sharded streaming engine; ``> 1`` is
-        taken only by a streamed request with ``distributed=False`` (the
-        reference reads ``n_blocks > 1`` with ``distributed`` unset as a
-        request for the distributed engines, which come later).
     epsilon : guaranteed bottleneck-error budget (field units, >= 0),
         answered from the coarsest hierarchy level whose bound meets it.
     deadline_s : wall-clock budget of progressive refinement (the
@@ -107,6 +101,8 @@ class TopoRequest:
     sandwich_backend: Optional[str] = None
     n_blocks: Optional[int] = None
     distributed: Optional[bool] = None
+    anticipation: Optional[bool] = None
+    budget: Optional[int] = None
     stream: Optional[bool] = None
     chunk_z: Optional[int] = None
     chunk_budget: Optional[int] = None
@@ -165,27 +161,9 @@ class TopoRequest:
         return self.epsilon is not None or self.progressive \
             or self.deadline_s is not None
 
-    def _later_options(self):
-        """Names of set options that a later part of the port brings."""
-        later = ["distributed"] if self.distributed else []
-        # n_blocks > 1 is the sharded streaming engine when streamed with
-        # distributed=False, else a request for the distributed engines
-        if (self.n_blocks or 1) > 1 and (self.distributed is None
-                                         or not self.is_stream):
-            later.append("n_blocks")
-        return later
-
     def resolve(self) -> "TopoRequest":
         """Validation + grid inference; returns a new frozen request with
         ``grid`` filled in."""
-        later = self._later_options()
-        if later:
-            extra = ("; n_blocks > 1 runs here only as a streamed request "
-                     "with distributed=False (the sharded streaming engine)"
-                     if later[0] == "n_blocks" else "")
-            raise NotImplementedError(
-                f"{later[0]}= is not ported to repro_torch yet; see "
-                f"ROADMAP.md {_LATER[later[0]]}{extra}")
         if self.stream is False and _is_source(self.field):
             raise ValueError(
                 "stream=False conflicts with a FieldSource field; sources "

@@ -5,6 +5,10 @@ is a fixed chain (Sec. II-F / III):
 
     order -> gradient -> critical extraction -> D0 -> D_{d-1} -> D1
 
+The front-end is the same for the sequential and the distributed
+algorithm; the config selects the back-end engines (the sandwich
+back-end, or the distributed pairing rounds and token D1).
+
 Each link is a stage object operating on a shared :class:`PipelineState`
 of device tensors.  Timings and counters land in a :class:`StageReport`;
 on a CUDA device each stage ends with a synchronize, so its seconds are
@@ -163,7 +167,8 @@ class GradientStage:
     name = "gradient"
 
     def run(self, state: PipelineState, cfg, rep: StageReport) -> None:
-        state.gf = cfg.backend.gradient(state.grid, state.order)
+        state.gf = cfg.backend.gradient(state.grid, state.order,
+                                        n_blocks=cfg.n_blocks)
         n_crit = state.gf.n_critical()
         rep.count(n_critical=sum(n_crit.values()),
                   **{f"n_critical_d{k}": v for k, v in n_crit.items()})
@@ -178,6 +183,20 @@ class CriticalStage:
         state.ci = cfg.sandwich.extract(state.grid, state.gf, state.order)
 
 
+def _pair_graph(g, cfg, rep: StageReport, prefix: str):
+    """The configured extremum-saddle pairing engine on a graph: the
+    distributed self-correcting rounds (with their counters) or the
+    sandwich back-end's."""
+    if cfg.distributed:
+        from repro_torch.distributed.pairing_rounds import pairing_fixpoint
+        p, st = pairing_fixpoint(g, collect_stats=True)
+        rep.count(**{prefix + "_rounds": st.rounds})
+        if prefix == "d0":
+            rep.count(d0_corrections=st.corrections)
+        return p
+    return cfg.sandwich.pair_d0(g)
+
+
 class D0Stage:
     """D0 on the primal extremum graph (minimum-saddle pairs)."""
 
@@ -186,7 +205,8 @@ class D0Stage:
     def run(self, state: PipelineState, cfg, rep: StageReport) -> None:
         grid, ci = state.grid, state.ci
         if grid.dim >= 1:
-            p0 = cfg.sandwich.pair_d0(build_d0_graph(grid, state.gf, ci))
+            p0 = _pair_graph(build_d0_graph(grid, state.gf, ci), cfg, rep,
+                             "d0")
             state.pairs[0] = as_pairs(p0.extrema, p0.saddles)
             state.essential[0] = _sorted(_minus(ci.crit_sids[0], p0.extrema))
             state.d0_saddles = p0.saddles
@@ -206,8 +226,8 @@ class DualStage:
         if d >= 2:
             state.dual_saddles = (_minus(ci.crit_sids[1], state.d0_saddles)
                                   if d == 2 else ci.crit_sids[d - 1])
-            pD = cfg.sandwich.pair_d0(cfg.sandwich.build_dual(
-                grid, state.gf, ci, state.dual_saddles))
+            pD = _pair_graph(cfg.sandwich.build_dual(
+                grid, state.gf, ci, state.dual_saddles), cfg, rep, "d_top")
             state.pairs[d - 1] = as_pairs(pD.saddles, pD.extrema)
             state.essential[d] = _sorted(_minus(ci.crit_sids[d], pD.extrema))
             state.dual_paired_saddles = pD.saddles
@@ -227,8 +247,17 @@ class D1Stage:
         if d == 3:
             c1 = _minus(ci.crit_sids[1], state.d0_saddles)
             c2 = _minus(ci.crit_sids[2], state.dual_paired_saddles)
-            ss = cfg.sandwich.pair_d1(grid, state.gf, ci, c1, c2)
-            rep.count(d1_expansions=ss.expansions, d1_rounds=ss.rounds)
+            if cfg.distributed:
+                from repro_torch.distributed.d1_rounds import d1_distributed
+                ss, st1 = d1_distributed(
+                    grid, state.gf, ci, c1, c2, cfg.n_blocks,
+                    anticipation=cfg.anticipation, budget=cfg.budget)
+                rep.count(d1_rounds=st1.rounds, d1_token_hops=st1.token_hops,
+                          d1_expansions=st1.expansions, d1_merges=st1.merges,
+                          d1_steals=st1.steals)
+            else:
+                ss = cfg.sandwich.pair_d1(grid, state.gf, ci, c1, c2)
+                rep.count(d1_expansions=ss.expansions, d1_rounds=ss.rounds)
             state.pairs[1] = as_pairs(ss.pairs[:, 0], ss.pairs[:, 1])
             state.essential[1] = ss.unpaired_edges.long()
             state.essential[2] = ss.unpaired_triangles.long()

@@ -169,7 +169,7 @@ class _Request:
         # stay per-request through run_batch, so they must NOT split
         # batches — only plan-affecting options key the group
         opts = (r.homology_dims, r.backend, r.n_blocks, r.distributed,
-                r.epsilon, r.trace)
+                r.anticipation, r.budget, r.epsilon, r.trace)
         return ("req", r.field_shape, dims, opts)
 
 

@@ -1,7 +1,7 @@
 """PyTorch port on a card: both CUDA kernels (and the fused kernel's halo
-entry) bit-equal to the plain PyTorch version, and the pipeline on the
-card (in memory, streamed, approximate and served) equal to the pipeline
-on the CPU.  Every
+entry, int32 and int64) bit-equal to the plain PyTorch version, and the
+pipeline on the card (in memory, streamed, distributed, approximate and
+served) equal to the pipeline on the CPU.  Every
 test here is marked ``cuda`` and skips without a CUDA device; the file
 imports neither jax nor the JAX package, so it runs on a machine that has
 only PyTorch:
@@ -124,6 +124,53 @@ def test_cuda_halo_kernel_matches_plain(cuda, dims, chunk_z):
         torch.cuda.synchronize()
         for a, b in zip(want, got):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dims", [(33, 17, 9), (129, 7, 6), (1, 1, 300)])
+def test_cuda_halo_int32_ring_matches_plain(cuda, dims):
+    """The int32 instantiation of the halo entry (dense sample-sort ranks)
+    on each ext volume of a 3-block ring (a -1 ghost below the first
+    block, data on both sides of the middle one, a -1 ghost above the
+    last) equals the plain version and the whole-grid rows of its slab."""
+    from repro_torch.distributed import FrontConfig, LocalRing
+    from repro_torch.distributed.shardmap_pipeline import halo_gradient
+    g = Grid.of(*dims)
+    f = np.random.default_rng(29).standard_normal(g.nv).astype(np.float32)
+    o = vertex_order(torch.from_numpy(f).cuda())
+    cfg = FrontConfig(g.dims, 3)
+    ext, rows = halo_gradient(cfg, LocalRing(3, "cuda"), o.reshape(3, -1))
+    whole = LS.fused_lower_star_gradient(g, o)
+    for b in range(3):
+        got = LS.fused_rows_from_halo_volume(ext[b], rank_bound=g.nv)
+        want = ops.lower_star_rows_halo(ext[b].cpu(), backend="torch")
+        sl = slice(b * cfg.nv_local, (b + 1) * cfg.nv_local)
+        torch.cuda.synchronize()
+        for x, y, z, r in zip(got, want, whole, rows):
+            assert torch.equal(x.cpu(), y) and torch.equal(x, z[sl])
+            assert torch.equal(x, r[b])
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(use_sample_sort=False),
+                                dict(gradient_backend="prepass")])
+def test_cuda_run_front_matches_cpu(cuda, kw):
+    from repro_torch.distributed import run_front
+    dims = (12, 10, 16)
+    f = make_field("random", dims, seed=3)
+    _, gpu = run_front(dims, f, 4, sort_slack=4.0, **kw)
+    _, cpu = run_front(dims, f, 4, device="cpu", sort_slack=4.0, **kw)
+    assert int(gpu["unresolved"]) == 0
+    for k, v in cpu.items():
+        assert gpu[k].dtype == v.dtype and torch.equal(gpu[k].cpu(), v), k
+
+
+def test_cuda_distributed_pipeline_matches_cpu(cuda):
+    dims = (12, 10, 16)
+    f = make_field("isabel", dims, seed=2)
+    req = TopoRequest(field=f, grid=Grid.of(*dims), n_blocks=4)
+    gpu = PersistencePipeline("shardmap").run(req)
+    cpu = PersistencePipeline(device="cpu").run(req)
+    assert gpu.to_bytes() == cpu.to_bytes()
+    assert gpu.stats["d1_rounds"] == cpu.stats["d1_rounds"]
 
 
 @pytest.mark.parametrize("n_blocks", [1, 3])

@@ -2,17 +2,23 @@
 exposition (``repro_torch.obs.exposition``) against the JAX package's for
 identically filled registries, its scrape endpoint and snapshot logger;
 ``TopoRequest(trace=True)`` runs (one span per stage, bit-identical to an
-untraced run, streamed chunk spans); and the plan cache's process-wide
+untraced run, streamed chunk spans, the same D0 / D1 round spans and
+round counters as the JAX package's); and the plan cache's process-wide
 counters."""
 
+import collections
 import json
 import urllib.request
 
 import numpy as np
 import pytest
 
+from repro.core import grid as JG
 from repro.obs import exposition as JX
 from repro.obs.metrics import MetricsRegistry as JRegistry
+from repro.obs.metrics import global_metrics as j_global_metrics
+from repro.pipeline import PersistencePipeline as JPipeline
+from repro.pipeline import TopoRequest as JRequest
 
 from repro_torch.core.grid import Grid
 from repro_torch.fields.generators import make_field
@@ -99,8 +105,9 @@ def test_traced_run_is_bit_identical(name, dims):
     doc = traced.trace.to_dict()
     validate_trace_events(doc)
     spans = [e["name"] for e in doc["traceEvents"] if e["ph"] == "X"]
-    assert spans == list(traced.plan.stage_names)
-    assert set(spans) <= set(STAGES)
+    # one span per stage; the D0 / D1 round spans nest inside them
+    assert [n for n in spans if n in STAGES] == list(traced.plan.stage_names)
+    assert set(spans) <= set(STAGES) | {"d0_round", "d1_round"}
     d1 = [e for e in doc["traceEvents"] if e["name"] == "d1"]
     if len(dims) == 3:
         assert d1[0]["args"]["d1_rounds"] == traced.stats["d1_rounds"]
@@ -108,6 +115,42 @@ def test_traced_run_is_bit_identical(name, dims):
     outs = pipe.run_batch([req, req.replace(trace=True), req])
     assert [o.trace is None for o in outs] == [True, False, True]
     assert all(o.to_bytes() == plain.to_bytes() for o in outs)
+
+
+ROUND_COUNTERS = ("pairing.d0_rounds", "pairing.d1_rounds")
+
+
+@pytest.mark.parametrize("dims,n_blocks", [((16, 16, 16), 1),
+                                           ((8, 8, 8), 2)])
+def test_round_spans_and_counters_match_reference(dims, n_blocks):
+    """A traced run lists the reference's spans, ``d0_round`` (each D0 /
+    dual pairing round) and ``d1_round`` (each D1 round: the wavefront's
+    batched path at 16^3, the token engine of the distributed back-end at
+    n_blocks=2), as many of each, and bumps ``pairing.d0_rounds`` /
+    ``pairing.d1_rounds`` by the same amounts."""
+    f = make_field("random", dims, seed=1)
+
+    def run(pipe, req, registry):
+        before = [registry.counter(k).value for k in ROUND_COUNTERS]
+        res = pipe.run(req)
+        after = [registry.counter(k).value for k in ROUND_COUNTERS]
+        names = collections.Counter(
+            e["name"] for e in res.trace.to_dict()["traceEvents"]
+            if e["ph"] == "X")
+        return res, names, [b - a for a, b in zip(before, after)]
+
+    want, want_spans, want_inc = run(
+        JPipeline(backend="jax", n_blocks=n_blocks),
+        JRequest(field=f, grid=JG.Grid.of(*dims), trace=True),
+        j_global_metrics())
+    got, got_spans, got_inc = run(
+        PersistencePipeline(device="cpu", n_blocks=n_blocks),
+        TopoRequest(field=f, grid=Grid.of(*dims), trace=True),
+        global_metrics())
+    assert got.to_bytes() == want.to_bytes()
+    assert got_spans == want_spans
+    assert got_spans["d0_round"] > 0 and got_spans["d1_round"] > 0
+    assert got_inc == want_inc and got_inc[1] == got.stats["d1_rounds"]
 
 
 def test_traced_streamed_run_has_chunk_spans(tmp_path):

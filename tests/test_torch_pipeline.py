@@ -162,13 +162,21 @@ def test_lower_describes_the_plan():
 
 
 @pytest.mark.parametrize("option", [
-    # streaming is ported; its distributed engines are not
     dict(stream=True, n_blocks=2), dict(chunk_z=2, distributed=True),
     dict(n_blocks=2), dict(distributed=True)])
 def test_later_slice_options_raise(option):
-    f = np.zeros((3, 4, 5), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        PersistencePipeline(device="cpu").run(TopoRequest(field=f, **option))
+    """The options a later slice brought (the distributed engines, in
+    memory and streamed) run on the CPU and give the reference's payload
+    and distributed counters."""
+    dims = (3, 4, 6)
+    f = make_field("random", dims, seed=5)
+    got = _port(f, dims, **option)
+    want = _reference(f, dims, **option)
+    assert got.to_bytes() == want.to_bytes()
+    assert got.plan.distributed == want.plan.distributed
+    for k in ("d0_rounds", "d_top_rounds", "d1_rounds", "d1_token_hops",
+              "n_blocks"):
+        assert got.stats.get(k) == want.stats.get(k), k
 
 
 @pytest.mark.parametrize("option", [
@@ -198,7 +206,8 @@ def test_request_validation():
         pipe.run(TopoRequest(field=np.zeros((3, 4, 5))), top_k=3)
     with pytest.raises(UnknownBackendError):
         PersistencePipeline("pallas", device="cpu")
-    assert set(available_backends()) == {"fused", "prepass", "torch"}
+    assert set(available_backends()) == {"fused", "prepass", "torch",
+                                         "shardmap"}
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
@@ -211,7 +220,9 @@ def test_import_loads_neither_jax_nor_repro():
     code = ("import sys, repro_torch, repro_torch.pipeline, "
             "repro_torch.kernels.sandwich, repro_torch.kernels.build, "
             "repro_torch.fields.generators, repro_torch.core.dms, "
-            "repro_torch.approx, repro_torch.cache, repro_torch.serve\n"
+            "repro_torch.approx, repro_torch.cache, repro_torch.serve, "
+            "repro_torch.distributed.d1_rounds, "
+            "repro_torch.distributed.pairing_rounds, repro_torch.core.ddms\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\nprint('clean')")

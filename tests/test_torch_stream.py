@@ -425,12 +425,20 @@ def test_streamed_request_surface():
         TopoRequest(field=f, chunk_z=2, chunk_budget=10)
     with pytest.raises(ValueError, match="conflict"):
         pipe.run(TopoRequest(field=ArraySource(f), grid=Grid.of(5, 4, 7)))
+    # the distributed engines: streamed (sharded front-end + distributed
+    # back-end) and in memory, each equal to the reference's payload
+    ref = JPipeline(backend="jax")
     for kw in (dict(n_blocks=2), dict(n_blocks=2, distributed=True),
                dict(distributed=True)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            pipe.run(TopoRequest(field=ArraySource(f), **kw))
-    with pytest.raises(NotImplementedError, match="item 9"):
-        pipe.run(TopoRequest(field=f, n_blocks=2, distributed=False))
+        got = pipe.run(TopoRequest(field=ArraySource(f), **kw))
+        want = ref.run(JRequest(field=JArraySource(f), **kw))
+        assert got.plan.distributed and want.plan.distributed
+        assert got.to_bytes() == want.to_bytes()
+        assert got.stats["d0_rounds"] == want.stats["d0_rounds"]
+    got = pipe.run(TopoRequest(field=f, n_blocks=2, distributed=False))
+    want = ref.run(JRequest(field=f, n_blocks=2, distributed=False))
+    assert not got.plan.distributed and got.plan.n_blocks == 2
+    assert got.to_bytes() == want.to_bytes()
     plain = PersistencePipeline(Backend("plain", get_backend("torch").rows),
                                 device="cpu")
     with pytest.raises(ValueError, match="no streamed kernel"):
