@@ -101,7 +101,26 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               ``wire=True`` payload, and ``stats_payload``.
 8. cpu      — diagrams on the card equal those on the CPU (32^3 wavelet,
               32^3 random, a thin 2-D grid).
-9. timing   — CUDA-event times of ``fused`` and ``prepass`` at 256^3
+9. oracle   — the card's kernels against the numpy oracles: fused and
+              prepass rows byte-equal to literal Robins on the host (and
+              the scattered gradients equal) on ``random``, ``wavelet``
+              and ``isabel`` 16^3 (``isabel`` also in the masked form)
+              and two odd shapes; the diagrams of ``fused``,
+              ``prepass``, ``diagram_stream`` (the halo entry, >= 2
+              chunks in 3-D) and the ``np`` gradient with the ``np``
+              sandwich equal to the boundary-matrix reduction
+              (``compute_oracle``: off-diagonal points and essential
+              orders) on tests/test_dms.py's 1-D, 2-D and 3-D cases,
+              ``random`` 32^3 (no np/np: literal Robins takes ~2 ms a
+              vertex) and ``isabel`` 16^3; ``fused`` with the ``np``
+              sandwich at 32^3 (``random``, ``isabel``), arrays equal to
+              the ``torch`` sandwich's; ``compile`` twice (the second
+              hits the plan cache), ``diagram`` / ``diagrams`` equal to
+              ``run``, ``StageReport.to_dict`` through JSON.  One line
+              per check with both sides' seconds; launch counters zeroed
+              just before and read just after (every kernel launched,
+              the plain version never).
+10. timing  — CUDA-event times of ``fused`` and ``prepass`` at 256^3
               (``isabel``, ``random``) and 512^3 (``random``) and of the
               plain version at 256^3, each beside its bound (the longer of
               its bytes over 3.35 TB/s and the integer operations the
@@ -116,7 +135,7 @@ The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script prints no result and exits non-zero.
 
-``--timing-of DIR`` runs only phase 9 (without the plain version) on the
+``--timing-of DIR`` runs only phase 10 (without the plain version) on the
 port in another tree DIR, for instance the parent commit unpacked with
 ``git archive`` into a git-ignored directory; it prints no result lines.
 To compare two trees, time them in turns in one call on one card (A, B,
@@ -302,7 +321,7 @@ def phase_build(smi):
     return report
 
 
-def _rows_equal(got, want):
+def _rows_equal(got, want, what="the plain version"):
     """Max |got - want| over the four row outputs (0 when bit-equal)."""
     import torch
     err = 0
@@ -313,7 +332,7 @@ def _rows_equal(got, want):
         err = max(err, int((a.long() - b.long()).abs().max())
                   if a.numel() else 0)
         if not torch.equal(a, b):
-            raise AssertionError("kernel rows differ from the plain version")
+            raise AssertionError(f"kernel rows differ from {what}")
     return err
 
 
@@ -627,13 +646,18 @@ def _report_line(rep):
     return {k: getattr(rep, k) for k in keys}
 
 
-def _same_front(a, b, what):
+def _same_gradient(a, b, what):
     import torch
     for name in ("pair_up", "pair_down", "crit"):
-        da, db = getattr(a.gf, name), getattr(b.gf, name)
+        da, db = getattr(a, name), getattr(b, name)
         if sorted(da) != sorted(db) or not all(
                 torch.equal(da[k], db[k]) for k in da):
             raise AssertionError(f"{what}: {name} differs")
+
+
+def _same_front(a, b, what):
+    import torch
+    _same_gradient(a.gf, b.gf, what)
     if not torch.equal(a.keys, b.keys):
         raise AssertionError(f"{what}: keys differ")
 
@@ -1368,6 +1392,203 @@ def phase_cpu():
             pairs={p: len(cpu.pairs(p)) for p in cpu.homology_dims})
 
 
+# tests/test_dms.py's oracle cases: (dims, seed) of a standard normal field
+ORACLE_CASES = ([((12,), s) for s in range(4)]
+                + [((5, 5), 0), ((6, 4), 1), ((4, 7), 2), ((8, 3), 3),
+                   ((5, 5), 4)]
+                + [((4, 4, 4), 0), ((3, 4, 5), 1), ((5, 3, 3), 2),
+                   ((4, 4, 3), 3), ((3, 3, 3), 4), ((4, 5, 3), 5)])
+
+
+def _timed(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, round(time.perf_counter() - t0, 3)
+
+
+def _oracle_rows(n):
+    """Fused and prepass rows on the card byte-equal to literal Robins on
+    the host (and the scattered gradients equal)."""
+    import torch
+    from repro_torch.core.gradient import (lower_star_rows_np,
+                                           scatter_results_batch)
+    from repro_torch.core.grid import Grid, vertex_order
+    from repro_torch.fields.generators import make_field
+    from repro_torch.kernels import ops
+    cases = [("random", (n,) * 3, False), ("wavelet", (n,) * 3, False),
+             ("isabel", (n,) * 3, False), ("isabel", (n,) * 3, True),
+             ("random", (13, 7, 5), False), ("magnetic", (5, 11, 9), False)]
+    for name, dims, masked in cases:
+        g = Grid.of(*dims)
+        o = vertex_order(torch.from_numpy(make_field(name, dims,
+                                                     seed=SEED)).cuda())
+        t0 = time.perf_counter()
+        want = tuple(torch.from_numpy(r).cuda() for r in
+                     lower_star_rows_np(g, o.cpu().numpy(), masked=masked))
+        np_s = round(time.perf_counter() - t0, 3)
+        [gf_np] = scatter_results_batch(g, *want)
+        secs = {}
+        for backend in ("fused", "prepass"):
+            rows, secs[backend] = _timed(
+                lambda: ops.lower_star_gradient(g, o, backend))
+            _rows_equal(rows, want, f"literal Robins ({name} {dims})")
+            [gf] = scatter_results_batch(g, *rows)
+            _same_gradient(gf, gf_np, f"{backend} {name} {dims}")
+        log("oracle", check="rows", field=name, dims=dims,
+            compared="fused+prepass rows and gradients vs literal Robins "
+            + ("(masked form)" if masked else "(heapq)"), equal=True,
+            np_s=np_s, fused_s=secs["fused"], prepass_s=secs["prepass"])
+
+
+def _oracle_diagrams(n_big, n_np):
+    """Diagrams of the fused, prepass and streamed (halo entry) routes, and
+    of the np gradient with the np sandwich, against the boundary-matrix
+    reduction."""
+    import numpy as np
+    import torch
+    from repro_torch.core.diagram import diff_report, same_offdiagonal
+    from repro_torch.core.dms import oracle_to_diagram
+    from repro_torch.core.grid import Grid
+    from repro_torch.core.reduction import compute_oracle
+    from repro_torch.fields.generators import make_field
+    from repro_torch.pipeline import PersistencePipeline, TopoRequest
+    from repro_torch.stream import ArraySource
+
+    def normal(dims, seed):
+        # float32, as stream sources take it
+        return np.random.default_rng(seed).standard_normal(
+            Grid.of(*dims).nv).astype(np.float32)
+    all_routes = ("fused", "prepass", "stream", "np/np")
+    cases = [(f"normal seed {s}", dims, normal(dims, s), all_routes)
+             for dims, s in ORACLE_CASES]
+    cases.append(("random", (n_big,) * 3,
+                  make_field("random", (n_big,) * 3, seed=SEED),
+                  ("fused", "prepass", "stream")))
+    cases.append(("isabel", (n_np,) * 3,
+                  make_field("isabel", (n_np,) * 3, seed=SEED), all_routes))
+    for name, dims, f, routes in cases:
+        g = Grid.of(*dims)
+        nx, ny, nz = g.dims
+        orc, orc_s = _timed(lambda: oracle_to_diagram(compute_oracle(g, f),
+                                                      g))
+        for route in routes:
+            req = TopoRequest(field=f, grid=g)
+            chunks = 1
+            if route == "stream":
+                req = TopoRequest(field=ArraySource(f.reshape(nz, ny, nx)),
+                                  stream=True, chunk_z=max(1, nz // 4))
+                pipe = PersistencePipeline()
+            elif route == "np/np":
+                pipe = PersistencePipeline("np", sandwich_backend="np")
+            else:
+                pipe = PersistencePipeline(route)
+            res, secs = _timed(lambda: pipe.run(req))
+            if route == "stream":
+                chunks = res.stream.n_chunks
+                if nz > 1 and chunks < 2:
+                    raise AssertionError(f"{name} {dims}: one chunk")
+            dg = res.diagram
+            same = same_offdiagonal(dg, orc) and all(
+                torch.equal(dg.essential_orders(p).cpu(),
+                            orc.essential_orders(p))
+                for p in range(g.dim + 1))
+            if not same:
+                raise AssertionError(f"{name} {dims} {route}: "
+                                     + diff_report(dg, orc, (route,
+                                                             "oracle")))
+            log("oracle", check="diagram", field=name, dims=dims,
+                compared=f"{route} vs compute_oracle", chunks=chunks,
+                equal=True, betti=dg.betti(), oracle_s=orc_s,
+                route_s=secs)
+
+
+def _oracle_mixed(n):
+    """The fused gradient with the np sandwich: payload equal to the torch
+    sandwich's, critical counts consistent with the diagram."""
+    import numpy as np
+    from repro_torch.core.grid import Grid
+    from repro_torch.fields.generators import make_field
+    from repro_torch.pipeline import PersistencePipeline, TopoRequest
+    g = Grid.of(n, n, n)
+    for name in ("random", "isabel"):
+        req = TopoRequest(field=make_field(name, g.dims, seed=SEED), grid=g)
+        mixed, mixed_s = _timed(lambda: PersistencePipeline(
+            "fused", sandwich_backend="np").run(req))
+        plain, plain_s = _timed(lambda: PersistencePipeline().run(req))
+        want = plain.arrays()
+        for key, arr in mixed.arrays().items():
+            if not np.array_equal(arr, want[key], equal_nan=True):
+                raise AssertionError(f"fused/np {name}: {key} differs from "
+                                     f"fused/torch")
+        crit = _check_result(mixed, g)
+        log("oracle", check="mixed", field=name, dims=g.dims,
+            compared="fused/np arrays vs fused/torch", equal=True,
+            critical=crit, np_sandwich_s=mixed_s, torch_sandwich_s=plain_s,
+            d1_expansions=mixed.stats["d1_expansions"])
+
+
+def _oracle_surface(n):
+    """compile (a second call hits the plan cache), diagram / diagrams
+    equal to run, StageReport.to_dict through JSON."""
+    from repro_torch.core.grid import Grid
+    from repro_torch.fields.generators import make_field
+    from repro_torch.pipeline import (PersistencePipeline, PlanCache,
+                                      TopoRequest)
+    g = Grid.of(n, n, n)
+    f = make_field("wavelet", g.dims, seed=SEED)
+    pipe = PersistencePipeline(plan_cache=PlanCache())
+    first = pipe.compile(TopoRequest(field=f, grid=g))
+    hits = pipe.plan_cache.hits
+    again = pipe.compile(TopoRequest(field=f, grid=g))
+    if pipe.plan_cache.hits != hits + 1 or \
+            again.row_offsets is not first.row_offsets:
+        raise AssertionError(f"second compile missed the plan cache: "
+                             f"{pipe.plan_cache.stats()}")
+    (res, one, two), secs = _timed(lambda: (
+        pipe.run(TopoRequest(field=f, grid=g, include_report=True)),
+        pipe.diagram(f, grid=g), pipe.diagrams([f, f], grid=g)))
+    want = res.to_bytes()
+    if not all(r.to_bytes() == want for r in (one, *two)):
+        raise AssertionError("diagram / diagrams differ from run")
+    doc = res.report.to_dict()
+    if json.loads(json.dumps(doc)) != doc:
+        raise AssertionError("StageReport.to_dict does not round-trip")
+    log("oracle", check="surface", field="wavelet", dims=g.dims,
+        compared="compile twice (cache hit), diagram, diagrams([f, f]) vs "
+        "run, to_dict via JSON", equal=True, seconds=secs,
+        plan_cache=pipe.plan_cache.stats(),
+        front_s=round(doc["front_seconds"], 4),
+        back_s=round(doc["back_seconds"], 4))
+
+
+def phase_oracle(n_rows=16, n_big=32, n_np=16, n_mixed=32):
+    """The kernels' rows and the pipeline's diagrams against the numpy
+    oracles (literal Robins, the boundary-matrix reduction), the mixed
+    fused / np route and the pipeline surface.  Launch counters zeroed just
+    before and read just after; returns the launches."""
+    import torch
+    from repro_torch.kernels import lower_star as LS
+    from repro_torch.kernels import ref
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    _zero_counts()
+    _oracle_rows(n_rows)
+    _oracle_diagrams(n_big, n_np)
+    _oracle_mixed(n_mixed)
+    _oracle_surface(n_np)
+    torch.cuda.synchronize()
+    launches = dict(LS.LAUNCHES)
+    plain = ref.CUDA_CALLS["lower_star_gradient_torch"]
+    log("oracle", seconds=round(time.perf_counter() - t_phase, 3),
+        launches=launches, plain_on_card=plain, smi=smi)
+    if plain or min(launches.values()) < 1:
+        raise AssertionError(f"[oracle] launches {launches}, plain {plain}")
+    return launches
+
+
 def phase_timing(isabel_256, report, plain=True):
     """CUDA-event times of both kernels on the [timing] fields, each beside
     its bound; ``report`` ([ptxas] phase) adds the launch shape, and
@@ -1524,6 +1745,7 @@ def main(argv):
     del results
     phase_serve(fields)
     phase_cpu()
+    oracle_launches = phase_oracle()
     rec = phase_timing(isabel, report)
     kernels = []
     for key, src, line in (("fused", "fused.cu", 255),
@@ -1533,7 +1755,8 @@ def main(argv):
             "name": f"{key}_lower_star", "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": f"src/repro/kernels/lower_star.py:{line}",
-            "launches": launches[key] + dist_launches[key],
+            "launches": launches[key] + dist_launches[key]
+            + oracle_launches[key],
             "max_abs_err": max_err,
             "ms": r["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1543,7 +1766,8 @@ def main(argv):
         "name": "fused_lower_star_halo", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused.cu",
         "replaces": "src/repro/kernels/lower_star.py:325",
-        "launches": halo_launches + dist_launches["fused_halo"],
+        "launches": halo_launches + dist_launches["fused_halo"]
+        + oracle_launches["fused_halo"],
         "max_abs_err": halo_err,
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None})

@@ -1,7 +1,11 @@
 """Critical simplices + per-dimension ranks (paper Sec. III, 'Extract & sort').
 
-PyTorch counterpart of ``repro.core.critical``'s :class:`CriticalInfo`.
-The kernel back-end builds it with
+PyTorch counterpart of ``repro.core.critical``.  :func:`extract_critical`
+is the reference's dense extraction: :func:`simplex_ranks` gives every
+valid k-simplex its position in the global lexicographic order of
+dimension k (numpy's ``lexsort`` on a host copy of the descending
+vertex-order keys), and the critical simplices are sorted by it.  The
+kernel back-end builds the same :class:`CriticalInfo` with
 :func:`repro_torch.kernels.sandwich.extract_critical_kernel`; every later
 stage only *compares* ranks, so any order-isomorphic injective key works.
 """
@@ -14,7 +18,21 @@ from typing import Dict
 import numpy as np
 import torch
 
+from .gradient import GradientField
 from .grid import Grid
+
+
+def simplex_ranks(grid: Grid, k: int, order: torch.Tensor) -> np.ndarray:
+    """Dense (sid_space,) int64 host array: rank of each valid k-simplex in
+    the global lexicographic order of dimension k; -1 for invalid sids."""
+    order = order.cpu()
+    vs = grid.all_valid_sids(k)
+    keys = grid.simplex_key(k, vs, order).numpy()            # (n, k+1) desc
+    perm = np.lexsort(tuple(keys[:, c]
+                            for c in range(keys.shape[1] - 1, -1, -1)))
+    ranks = np.full(grid.sid_space(k), -1, dtype=np.int64)
+    ranks[vs.numpy()[perm]] = np.arange(len(vs), dtype=np.int64)
+    return ranks
 
 
 @dataclass
@@ -25,6 +43,10 @@ class CriticalInfo:
     order: torch.Tensor
     crit_sids: Dict[int, torch.Tensor]   # sorted by rank, ascending
     ranks: Dict[int, torch.Tensor]       # dense rank/key arrays
+
+    def max_vertex_order(self, k: int, sids: torch.Tensor) -> torch.Tensor:
+        """Order of the max vertex of each k-simplex ``sids``."""
+        return self.order[self.grid.simplex_max_vertex(k, sids, self.order)]
 
     def to_numpy(self):
         """(order, crit_sids, ranks) as numpy arrays."""
@@ -41,3 +63,19 @@ class CriticalInfo:
         return CriticalInfo(grid, conv(order),
                             {int(k): conv(v) for k, v in crit_sids.items()},
                             {int(k): conv(v) for k, v in ranks.items()})
+
+
+def extract_critical(grid: Grid, gf: GradientField,
+                     order: torch.Tensor) -> CriticalInfo:
+    """The reference's dense extraction on a host copy: ranks of every
+    valid simplex, critical sids sorted by rank; the result lives on the
+    gradient's device."""
+    dev = gf.crit[0].device
+    crit_sids: Dict[int, torch.Tensor] = {}
+    ranks: Dict[int, torch.Tensor] = {}
+    for k in range(grid.dim + 1):
+        rk = simplex_ranks(grid, k, order)
+        cs = gf.critical_sids(k).cpu().numpy()
+        crit_sids[k] = torch.from_numpy(cs[np.argsort(rk[cs])]).to(dev)
+        ranks[k] = torch.from_numpy(rk).to(dev)
+    return CriticalInfo(grid, order, crit_sids, ranks)

@@ -5,6 +5,11 @@ the thin wrapper kept from the reference:
 
     compute_dms(grid, f)  ==  PersistencePipeline().run(
                                   TopoRequest(field=f, grid=grid))
+
+``oracle_to_diagram`` turns the boundary-matrix reduction's pairing
+(:func:`repro_torch.core.reduction.compute_oracle`) into a
+:class:`Diagram`, the ground truth the pipeline's diagrams are compared
+with (``diagram.same_offdiagonal``).
 """
 
 from __future__ import annotations
@@ -32,6 +37,11 @@ def as_pairs(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return rows[torch.argsort(rows[:, 0], stable=True)]
 
 
+def _as_pairs(lst) -> torch.Tensor:
+    """(n, 2) int64 rows of a list of pairs, sorted."""
+    return torch.tensor(sorted(lst), dtype=torch.int64).reshape(-1, 2)
+
+
 def compute_dms(grid: Grid, f: np.ndarray, gradient_backend: str = "fused",
                 device: Optional[str] = None) -> DMSResult:
     """Sequential DMS via the pipeline (see module docstring)."""
@@ -39,3 +49,12 @@ def compute_dms(grid: Grid, f: np.ndarray, gradient_backend: str = "fused",
     res = PersistencePipeline(backend=gradient_backend, device=device) \
         .run(TopoRequest(field=f, grid=grid))
     return DMSResult(res.diagram, res.stats)
+
+
+def oracle_to_diagram(orc, grid: Grid) -> Diagram:
+    """A reduction :class:`~repro_torch.core.reduction.DiagramOracle` as a
+    :class:`Diagram` (CPU tensors)."""
+    pairs = {k: _as_pairs(v) for k, v in orc.pairs.items()}
+    essential = {k: torch.tensor(sorted(v), dtype=torch.int64)
+                 for k, v in orc.essential.items()}
+    return Diagram(grid, orc.filt.order, pairs, essential)

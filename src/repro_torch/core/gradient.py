@@ -11,6 +11,11 @@ ProcessLowerStars); the pairing itself lives in ``repro_torch.kernels``
   row's other vertices (``others``) and its faces that contain the vertex
   (``fid``);
 - :func:`neighbor_orders`, the (nv, 27) stencil gather;
+- :func:`compute_gradient_np`, the literal Robins ProcessLowerStars with
+  priority queues (``heapq``) per vertex, or its queue-free masked form
+  (``masked=True``): the reference's sequential host oracle, kept in
+  numpy; :func:`lower_star_rows_np` gives its packed rows, the same rows
+  the kernels write;
 - :class:`GradientField`, dense pair/critical arrays as device tensors,
   with :func:`gradient_from_numpy` / :meth:`GradientField.to_numpy` to
   carry a gradient across from (and back to) numpy;
@@ -23,8 +28,9 @@ ProcessLowerStars); the pairing itself lives in ``repro_torch.kernels``
 from __future__ import annotations
 
 import functools
+import heapq
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -90,6 +96,164 @@ def neighbor_orders(grid: Grid, order: torch.Tensor) -> torch.Tensor:
     cols = [pad[1 + dz: 1 + dz + nz, 1 + dy: 1 + dy + ny, 1 + dx: 1 + dx + nx]
             for dz in (-1, 0, 1) for dy in (-1, 0, 1) for dx in (-1, 0, 1)]
     return torch.stack(cols, dim=-1).reshape(grid.nv, 27)
+
+
+# --------------------------------------------------------------------------
+# Literal Robins reference (priority queues), on the host
+# --------------------------------------------------------------------------
+
+def _row_key(nbrs: np.ndarray, row: int) -> Tuple[int, int, int]:
+    """Lexicographic G-key of a star row: other-vertex orders, sorted
+    descending, padded with -1 (the shared max vertex v is dropped)."""
+    oth = PACKED["others"][row]
+    vals = sorted((int(nbrs[i]) for i in oth if i >= 0), reverse=True)
+    while len(vals) < 3:
+        vals.append(-1)
+    return tuple(vals)
+
+
+def _row_in_l(nbrs: np.ndarray, ov: int, row: int) -> bool:
+    oth = PACKED["others"][row]
+    for i in oth:
+        if i < 0:
+            continue
+        o = int(nbrs[i])
+        if o < 0 or o >= ov:
+            return False
+    return True
+
+
+def _process_lower_star_ref(nbrs: np.ndarray, ov: int):
+    """Literal ProcessLowerStars for one vertex.  Returns (status, partner,
+    vstatus, vpartner): status/partner over the 74 packed rows."""
+    status = np.zeros(NROWS, dtype=np.int8)
+    partner = np.full(NROWS, -1, dtype=np.int8)
+    in_l = [_row_in_l(nbrs, ov, r) for r in range(NROWS)]
+    for r in range(NROWS):
+        if in_l[r]:
+            status[r] = AVAIL
+    edges = [r for r in range(G.NSTAR[1]) if in_l[r]]
+    if not edges:
+        return status, partner, CRIT, -1
+
+    def nuf(row: int) -> Tuple[int, int]:
+        """(count, last) of available faces-containing-v of a row."""
+        c, last = 0, -1
+        for f in PACKED["fid"][row]:
+            if f >= 0 and status[f] == AVAIL:
+                c += 1
+                last = int(f)
+        return c, last
+
+    delta = min(edges, key=lambda r: _row_key(nbrs, r))
+    vstatus, vpartner = TAIL, delta
+    status[delta] = HEAD
+    partner[delta] = -2  # paired with the vertex itself
+
+    pqzero: List[Tuple[Tuple[int, int, int], int]] = []
+    pqone: List[Tuple[Tuple[int, int, int], int]] = []
+    for r in edges:
+        if r != delta:
+            heapq.heappush(pqzero, (_row_key(nbrs, r), r))
+    # cofaces of delta with one unpaired face
+    for r in range(NROWS):
+        if status[r] == AVAIL and nuf(r)[0] == 1 and delta in PACKED["fid"][r]:
+            heapq.heappush(pqone, (_row_key(nbrs, r), r))
+
+    def push_cofaces(*rows: int):
+        for r in range(NROWS):
+            if status[r] != AVAIL:
+                continue
+            if nuf(r)[0] == 1 and any(x in PACKED["fid"][r] for x in rows):
+                heapq.heappush(pqone, (_row_key(nbrs, r), r))
+
+    while pqone or pqzero:
+        while pqone:
+            _, alpha = heapq.heappop(pqone)
+            if status[alpha] != AVAIL:
+                continue  # stale
+            c, face = nuf(alpha)
+            if c == 0:
+                heapq.heappush(pqzero, (_row_key(nbrs, alpha), alpha))
+                continue
+            # pair(face, alpha)
+            status[alpha] = HEAD
+            partner[alpha] = face
+            status[face] = TAIL
+            partner[face] = alpha
+            push_cofaces(alpha, face)
+        if pqzero:
+            _, gamma = heapq.heappop(pqzero)
+            if status[gamma] != AVAIL:
+                continue  # stale (was paired meanwhile)
+            status[gamma] = CRIT
+            push_cofaces(gamma)
+    return status, partner, vstatus, vpartner
+
+
+def _process_lower_star_masked(nbrs: np.ndarray, ov: int):
+    """Same output as the literal reference, queue-free: the queue
+    memberships are recomputed from the pairing state (PQone = available
+    with one unpaired face, PQzero = available with none), so each pop is
+    a masked lexicographic argmin over the 74 rows."""
+    status = np.zeros(NROWS, dtype=np.int8)
+    partner = np.full(NROWS, -1, dtype=np.int8)
+    keys = np.stack([_row_key(nbrs, r) for r in range(NROWS)]).astype(np.int64)
+    for r in range(NROWS):
+        if _row_in_l(nbrs, ov, r):
+            status[r] = AVAIL
+    if not (status[: G.NSTAR[1]] == AVAIL).any():
+        return status, partner, CRIT, -1
+
+    def lexmin(mask: np.ndarray) -> int:
+        idx = np.nonzero(mask)[0]
+        return int(idx[np.lexsort((keys[idx, 2], keys[idx, 1],
+                                   keys[idx, 0]))[0]])
+
+    delta = lexmin((status == AVAIL)
+                   & (np.arange(NROWS) < G.NSTAR[1]))
+    vstatus, vpartner = TAIL, delta
+    status[delta] = HEAD
+    partner[delta] = -2
+
+    fid = PACKED["fid"]
+    while True:
+        avail = status == AVAIL
+        nuf = ((fid >= 0) & avail[np.maximum(fid, 0)]).sum(axis=1)
+        m1 = avail & (nuf == 1)
+        if m1.any():
+            alpha = lexmin(m1)
+            fr = fid[alpha]
+            face = int(fr[(fr >= 0) & avail[np.maximum(fr, 0)]][0])
+            status[alpha] = HEAD
+            partner[alpha] = face
+            status[face] = TAIL
+            partner[face] = alpha
+            continue
+        m0 = avail & (nuf == 0)
+        if not m0.any():
+            break
+        gamma = lexmin(m0)
+        status[gamma] = CRIT
+    return status, partner, vstatus, vpartner
+
+
+def lower_star_rows_np(grid: Grid, order: np.ndarray, masked: bool = False):
+    """Packed rows of one field by literal Robins (or the masked form) per
+    vertex, on the host, laid out and typed as the kernels write them:
+    status, partner (nv, 74) int8, vstat (nv,) int8, vpart (nv,) int32."""
+    order = np.asarray(order).reshape(-1)
+    nbrs = neighbor_orders(grid, torch.from_numpy(order)).numpy()
+    nv = grid.nv
+    status = np.zeros((nv, NROWS), dtype=np.int8)
+    partner = np.full((nv, NROWS), -1, dtype=np.int8)
+    vstatus = np.zeros(nv, dtype=np.int8)
+    vpartner = np.full(nv, -1, dtype=np.int32)
+    fn = _process_lower_star_masked if masked else _process_lower_star_ref
+    for v in range(nv):
+        s, p, vs, vp = fn(nbrs[v], int(order[v]))
+        status[v], partner[v], vstatus[v], vpartner[v] = s, p, vs, vp
+    return status, partner, vstatus, vpartner
 
 
 # --------------------------------------------------------------------------
@@ -294,6 +458,26 @@ def scatter_rows_chunk(grid: Grid, gf: GradientField, status: torch.Tensor,
             + off[k - 1][p - ROW_OFF[k - 1]]
         gf.pair_down[k][head_sid] = face_sid.to(gf.pair_down[k].dtype)
         gf.pair_up[k - 1][face_sid] = head_sid.to(gf.pair_up[k - 1].dtype)
+
+
+def compute_gradient_np(grid: Grid, order: torch.Tensor,
+                        masked: bool = False) -> GradientField:
+    """Reference gradient: literal Robins (or the masked form) per vertex on
+    the host; the rows are scattered on ``order``'s device."""
+    rows = lower_star_rows_np(grid, order.cpu().numpy(), masked)
+    [gf] = scatter_results_batch(
+        grid, *(torch.from_numpy(r).to(order.device) for r in rows))
+    return gf
+
+
+def compute_gradient(grid: Grid, order: torch.Tensor,
+                     backend: str = "fused") -> GradientField:
+    """Vectorized gradient through ``kernels.ops`` (``fused``, ``prepass``
+    or ``torch``)."""
+    from repro_torch.kernels import ops
+    [gf] = scatter_results_batch(
+        grid, *ops.lower_star_gradient(grid, order, backend))
+    return gf
 
 
 # --------------------------------------------------------------------------

@@ -175,7 +175,7 @@ STAR_COFACES: Dict[int, np.ndarray] = _build_star_cofaces()
 def _device_table(name: str, k: int, device: torch.device) -> torch.Tensor:
     """int64 copy of a type table on ``device`` (cached per device)."""
     tab = {"VERTS": VERTS, "SPAN": SPAN, "FACES": FACES,
-           "COFACES": COFACES}[name][k]
+           "COFACES": COFACES, "STAR": STAR, "OTHERS": OTHERS}[name][k]
     return torch.as_tensor(tab.astype(np.int64), device=device)
 
 
@@ -295,6 +295,43 @@ class Grid:
             & (cx + st[..., 0] <= nx - 1) & (cy + st[..., 1] <= ny - 1) \
             & (cz + st[..., 2] <= nz - 1)
         return torch.where(valid, csid, -1)
+
+    def star_sids(self, k: int, v: torch.Tensor) -> torch.Tensor:
+        """(..., S_k) sids of the k-simplices of star(v); -1 where invalid."""
+        v = v.long()
+        x, y, z = self.vid_to_xyz(v)
+        tab = table("STAR", k, v.device)                     # (S, 4)
+        bx = x[..., None] - tab[:, 1]
+        by = y[..., None] - tab[:, 2]
+        bz = z[..., None] - tab[:, 3]
+        t = tab[:, 0]
+        sid = self.xyz_to_vid(bx, by, bz) * NTYPES[k] + t
+        span = table("SPAN", k, v.device)[t]
+        nx, ny, nz = self.dims
+        valid = self.in_bounds(bx, by, bz) \
+            & (bx + span[:, 0] <= nx - 1) & (by + span[:, 1] <= ny - 1) \
+            & (bz + span[:, 2] <= nz - 1)
+        return torch.where(valid, sid, -1)
+
+    def star_other_vertices(self, k: int, v: torch.Tensor):
+        """(..., S_k, k) the other vertex ids of star row r at vertex v, and
+        a validity mask (..., S_k)."""
+        v = v.long()
+        x, y, z = self.vid_to_xyz(v)
+        oth = table("OTHERS", k, v.device)                   # (S, k, 3)
+        ox = x[..., None, None] + oth[..., 0]
+        oy = y[..., None, None] + oth[..., 1]
+        oz = z[..., None, None] + oth[..., 2]
+        vids = self.xyz_to_vid(ox, oy, oz)
+        valid = self.in_bounds(ox, oy, oz).all(dim=-1) if k > 0 else \
+            torch.ones(vids.shape[:-1], dtype=torch.bool, device=v.device)
+        return vids, valid
+
+    def all_valid_sids(self, k: int, device="cpu") -> torch.Tensor:
+        """Ascending int64 sids of every valid k-simplex."""
+        sid = torch.arange(self.sid_space(k), dtype=torch.int64,
+                           device=device)
+        return sid[self.simplex_valid(k, sid)]
 
     def simplex_key(self, k: int, sid: torch.Tensor,
                     order: torch.Tensor) -> torch.Tensor:

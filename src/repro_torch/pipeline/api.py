@@ -38,21 +38,23 @@ equal the sequential ones.
 from __future__ import annotations
 
 import time
+from dataclasses import dataclass
 from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core.diagram import Diagram
+from repro_torch.core.grid import Grid
 from repro_torch.core.gradient import scatter_results_batch
 from repro_torch.obs.trace import Trace, current_trace, maybe_span, \
     trace_active
 
-from .backends import (Backend, available_backends, get_backend,
-                       get_sandwich_backend)
-from .plan import Plan, PlanCache, default_plan_cache
+from .backends import (Backend, SandwichBackend, available_backends,
+                       get_backend, get_sandwich_backend)
+from .plan import Executable, Plan, PlanCache, default_plan_cache
 from .request import TopoRequest, strip_field
-from .result import DiagramResult
+from .result import DiagramResult, PipelineResult  # noqa: F401 (re-export)
 from .stages import (ALL_STAGES, FRONT_STAGES, PipelineState, StageReport,
                      _sync, run_stages)
 
@@ -76,26 +78,33 @@ def _back_stage_names(grid_dim: int, homology_dims) -> tuple:
     return tuple(names)
 
 
-class _Config:
-    """What a stage reads: the gradient backend, the sandwich engine and
-    the distributed back-end's knobs."""
+@dataclass(frozen=True)
+class PipelineConfig:
+    """Resolved execution config handed to every stage."""
 
-    def __init__(self, backend: Backend, sandwich, plan: Plan):
-        self.backend = backend
-        self.sandwich = sandwich
-        self.n_blocks = plan.n_blocks
-        self.distributed = plan.distributed
-        self.anticipation = plan.anticipation
-        self.budget = plan.budget
+    backend: Backend
+    n_blocks: int = 1
+    distributed: bool = False       # pairing rounds + token D1
+    anticipation: bool = True       # D1 anticipation (Sec. V-B)
+    budget: Optional[int] = None    # D1 anticipation step budget
+    # the sandwich back-end running the pairing phases; None means the
+    # "np" reference (``stages.sandwich_of``)
+    sandwich: Optional[SandwichBackend] = None
+
+    def __post_init__(self):
+        if self.n_blocks < 1:
+            raise ValueError(
+                f"n_blocks must be >= 1, got {self.n_blocks}")
 
 
 class PersistencePipeline:
     """Staged DMS executor on one torch device.
 
     backend : gradient registry name (``"fused"``, ``"prepass"``,
-        ``"torch"``) or a :class:`Backend`; the default for requests that
-        name none.
-    sandwich_backend : sandwich registry name (``"torch"``).
+        ``"torch"``, ``"shardmap"``, ``"np"``) or a :class:`Backend`; the
+        default for requests that name none.
+    sandwich_backend : sandwich registry name (``"torch"``, or ``"np"``
+        for the sequential host oracles).
     n_blocks : z-slab block count of the distributed engines (and shard
         count of streamed requests).
     distributed : run the distributed back-end (self-correcting pairing
@@ -113,16 +122,12 @@ class PersistencePipeline:
                  anticipation: bool = True, budget: Optional[int] = None,
                  sandwich_backend: str = "torch", device=None,
                  plan_cache: Optional[PlanCache] = None):
-        self.backend = backend if isinstance(backend, Backend) \
-            else get_backend(backend)
-        self.sandwich = get_sandwich_backend(sandwich_backend)
-        if n_blocks < 1:
-            raise ValueError(f"n_blocks must be >= 1, got {n_blocks}")
-        self.n_blocks = n_blocks
-        self.distributed = (n_blocks > 1) if distributed is None \
-            else distributed
-        self.anticipation = anticipation
-        self.budget = budget
+        self.config = PipelineConfig(
+            backend=backend if isinstance(backend, Backend)
+            else get_backend(backend), n_blocks=n_blocks,
+            distributed=(n_blocks > 1) if distributed is None
+            else distributed, anticipation=anticipation, budget=budget,
+            sandwich=get_sandwich_backend(sandwich_backend))
         dev = torch.device("cuda" if device is None else device)
         if dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -131,6 +136,10 @@ class PersistencePipeline:
         self.device = dev
         self.plan_cache = plan_cache if plan_cache is not None \
             else default_plan_cache()
+
+    @property
+    def backend(self) -> Backend:
+        return self.config.backend
 
     def _get_backend(self, name: str) -> Backend:
         return self.backend if name == self.backend.name else get_backend(name)
@@ -158,16 +167,17 @@ class PersistencePipeline:
         backend = req.backend if req.backend is not None \
             else self.backend.name
         be = self._get_backend(backend)
+        cfg = self.config
         sandwich = get_sandwich_backend(
-            req.sandwich_backend or self.sandwich.name).name
+            req.sandwich_backend or cfg.sandwich.name).name
         n_blocks = req.n_blocks if req.n_blocks is not None \
-            else self.n_blocks
+            else cfg.n_blocks
         if req.distributed is not None:
             distributed = req.distributed
         elif req.n_blocks is not None:
             distributed = req.n_blocks > 1
         else:
-            distributed = self.distributed
+            distributed = cfg.distributed
         streamed = req.is_stream
         if streamed and not be.caps.streamed:
             if be.caps.sharded:
@@ -189,11 +199,27 @@ class PersistencePipeline:
                     streamed=streamed, chunk_z=req.chunk_z,
                     chunk_budget=req.chunk_budget, n_blocks=n_blocks,
                     distributed=distributed,
-                    anticipation=self.anticipation
+                    anticipation=cfg.anticipation
                     if req.anticipation is None else req.anticipation,
-                    budget=self.budget if req.budget is None else req.budget,
+                    budget=cfg.budget if req.budget is None else req.budget,
                     epsilon=req.epsilon,
                     deadline_s=req.deadline_s, progressive=req.progressive)
+
+    def compile(self, request, grid=None, **options) -> Executable:
+        """``lower`` + bind the rows program and offset tables through the
+        plan cache."""
+        return self._compile(self.lower(request, grid, **options))
+
+    def _compile(self, plan: Plan) -> Executable:
+        return plan.compile(self.plan_cache,
+                            backend=self._get_backend(plan.backend))
+
+    def _cfg(self, plan: Plan) -> PipelineConfig:
+        return PipelineConfig(
+            backend=self._get_backend(plan.backend), n_blocks=plan.n_blocks,
+            distributed=plan.distributed, anticipation=plan.anticipation,
+            budget=plan.budget,
+            sandwich=get_sandwich_backend(plan.sandwich_backend))
 
     # -- run -------------------------------------------------------------
 
@@ -262,8 +288,8 @@ class PersistencePipeline:
                    plan: Plan) -> List[DiagramResult]:
         """Batched front-end (one rows launch over the stacked batch), then
         per-request back-ends."""
-        cfg = _Config(self._get_backend(plan.backend),
-                      get_sandwich_backend(plan.sandwich_backend), plan)
+        cfg = self._cfg(plan)
+        ex = self._compile(plan)
         grid = reqs[0].grid
         B = len(reqs)
         reports = [StageReport("pipeline") for _ in reqs]
@@ -273,10 +299,9 @@ class PersistencePipeline:
 
         t0 = time.perf_counter()
         with maybe_span(current_trace(), "gradient", batch_size=B):
-            rows = cfg.backend.rows_for(
-                grid, torch.stack([s.order for s in states]), plan.n_blocks)
-            gfs = scatter_results_batch(
-                grid, *rows, B=B, offsets=plan.row_offsets(self.plan_cache))
+            rows = ex.rows_program(torch.stack([s.order for s in states]))
+            gfs = scatter_results_batch(grid, *rows, B=B,
+                                        offsets=ex.row_offsets)
             del rows
             _sync()
         dt = (time.perf_counter() - t0) / B
@@ -331,8 +356,7 @@ class PersistencePipeline:
         sharded streaming engine; output stays bit-identical."""
         from repro_torch.stream import (SparseOrder, diagram_vertices,
                                         sharded_stream_front, stream_front)
-        cfg = _Config(self._get_backend(plan.backend),
-                      get_sandwich_backend(plan.sandwich_backend), plan)
+        cfg = self._cfg(plan)
         src = self._source(req)
         grid = req.grid
         chunk_z, chunk_budget = plan.chunk_z, plan.chunk_budget
@@ -385,3 +409,21 @@ class PersistencePipeline:
         return self.run(TopoRequest(field=source, stream=True,
                                     chunk_z=chunk_z,
                                     chunk_budget=chunk_budget))
+
+    # -- shims over run ------------------------------------------------------
+
+    def diagram(self, f, grid: Optional[Grid] = None) -> DiagramResult:
+        """Persistence diagram of one scalar field (shim over ``run``)."""
+        return self.run(TopoRequest(field=f, grid=grid))
+
+    def diagrams(self, fields: Sequence, grid: Optional[Grid] = None
+                 ) -> List[DiagramResult]:
+        """Diagrams of a batch of same-shape fields (shim over
+        ``run_batch``)."""
+        fields = list(fields)
+        shapes = {tuple(f.shape) for f in fields}
+        if len(shapes) > 1:
+            raise ValueError(
+                f"diagrams() needs same-shape fields, got {sorted(shapes)}")
+        return self.run_batch(
+            [TopoRequest(field=f, grid=grid) for f in fields])

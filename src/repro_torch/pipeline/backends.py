@@ -9,6 +9,8 @@ for one halo-extended z-slab, ``kernels.ops.lower_star_rows_halo``;
 ``sharded``: rows computed per z-slab block, ``rows(grid, orders,
 n_blocks=n)``):
 
+- ``np``       — literal Robins ProcessLowerStars with priority queues, per
+  vertex on the host (the reference's oracle; chosen only by name);
 - ``fused``    — the fused CUDA lower-star kernel (default);
 - ``prepass``  — the (nv, 27) gather + the prepass CUDA kernel;
 - ``torch``    — the same gather + the plain PyTorch pairing;
@@ -20,7 +22,11 @@ n_blocks=n)``):
 
 On the CPU the two kernel backends run the plain version (see
 ``kernels.lower_star``).  Sandwich back-ends: ``torch``, the tensor port
-of the reference's batched ``jax`` back-end (``kernels.sandwich``).
+of the reference's batched ``jax`` back-end (``kernels.sandwich``), and
+``np``, the reference's sequential host oracles (dense lexsort
+extraction, Union-Find over dicts, per-triangle set-XOR D1).  The ``np``
+back-ends hand back the same tensor dataclasses on the pipeline's device;
+nothing falls back to them.
 """
 
 from __future__ import annotations
@@ -28,11 +34,16 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Callable, Dict
 
+import numpy as np
 import torch
 
 from repro_torch.core import gradient as GR
+from repro_torch.core.critical import extract_critical
+from repro_torch.core.extremum_graph import build_dual_graph
 from repro_torch.core.gradient import GradientField
 from repro_torch.core.grid import Grid
+from repro_torch.core.pairing import pair_extrema_saddles
+from repro_torch.core.saddle_saddle import pair_saddle_saddle_seq
 from repro_torch.kernels import ops
 from repro_torch.kernels.sandwich import (build_dual_graph_chase,
                                           extract_critical_kernel,
@@ -143,6 +154,16 @@ def _rows(kernel: str) -> Callable:
     return rows
 
 
+def _rows_np(grid: Grid, orders: torch.Tensor):
+    """Rows of each field by literal Robins on the host
+    (:func:`~repro_torch.core.gradient.lower_star_rows_np`), moved to the
+    orders' device."""
+    per = [GR.lower_star_rows_np(grid, o) for o in
+           orders.reshape(-1, grid.nv).cpu().numpy()]
+    return tuple(torch.from_numpy(np.concatenate(p)).to(orders.device)
+                 for p in zip(*per))
+
+
 def _rows_shardmap(grid: Grid, orders: torch.Tensor, n_blocks: int = 1):
     """Rows of each field from ``halo_gradient`` over a LocalRing of
     ``n_blocks`` z-slabs (dense vertex orders: the fused kernel's int32
@@ -160,6 +181,10 @@ def _rows_shardmap(grid: Grid, orders: torch.Tensor, n_blocks: int = 1):
 
 
 register_backend(Backend(
+    name="np", rows=_rows_np,
+    description="literal Robins ProcessLowerStars on the host (heapq "
+                "reference)"))
+register_backend(Backend(
     name="fused", rows=_rows("fused"), caps=BackendCaps(streamed=True),
     description="fused gather + pairing CUDA kernel (csrc/fused.cu)"))
 register_backend(Backend(
@@ -173,6 +198,11 @@ register_backend(Backend(
     description="z-slab blocks with a boundary-plane halo exchange, the "
                 "fused kernel's halo entry per block"))
 
+register_sandwich_backend(SandwichBackend(
+    name="np", extract=extract_critical, pair_d0=pair_extrema_saddles,
+    build_dual=build_dual_graph, pair_d1=pair_saddle_saddle_seq,
+    description="sequential reference back-end on the host (dense lexsort, "
+                "Union-Find dicts, per-triangle set-XOR); the oracle"))
 register_sandwich_backend(SandwichBackend(
     name="torch", extract=extract_critical_kernel,
     pair_d0=pair_extrema_saddles_kernel, build_dual=build_dual_graph_chase,

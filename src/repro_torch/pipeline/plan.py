@@ -8,9 +8,13 @@ execution (chunking, shards), the sequential or distributed back-end
 (stages whose outputs the request does not ask for are dropped).
 Plans are frozen, hashable and inspectable (``describe()``).
 
-PyTorch runs eagerly, so there is no compiled program to bind; the only
-per-plan artifact is the row -> sid offset table set of the scatter,
-cached per ``(dims, device)`` in a :class:`PlanCache`.  Hits, misses and
+``Plan.compile()`` binds the plan into an :class:`Executable`: the
+backend's rows program for the plan's grid and block count, and the
+row -> sid offset tables of the scatter, cached per ``(dims, device)``
+in a :class:`PlanCache`.  PyTorch runs eagerly, so binding a rows
+program compiles nothing (the CUDA kernels are built once per process
+at their first launch, ``kernels.build``) and it is not cached; the
+offset tables are the only per-plan artifact.  Hits, misses and
 evictions of every cache also count into the process-wide
 ``plan_cache.*`` counters of :func:`repro_torch.obs.global_metrics`.
 """
@@ -19,12 +23,14 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Tuple
 
 from repro_torch.core.gradient import row_sid_offsets
 from repro_torch.core.grid import Grid
 from repro_torch.obs.metrics import global_metrics
+
+from .backends import Backend, get_backend
 
 # process-wide counters, summed over every PlanCache
 _M_HITS = global_metrics().counter("plan_cache.hits")
@@ -60,6 +66,27 @@ class PlanCache:
                 self.evictions += 1
                 _M_EVICTIONS.inc()
             return out
+
+    def __bool__(self) -> bool:
+        # a cache is truthy even when empty, so `cache or default` never
+        # drops a fresh cache for the shared one
+        return True
+
+    def __contains__(self, key: tuple) -> bool:
+        with self._lock:
+            return key in self._entries
+
+    def peek(self, key: tuple):
+        """Read without building (KeyError if absent); no LRU touch."""
+        with self._lock:
+            return self._entries[key]
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._entries.clear()
 
     def stats(self) -> Dict[str, int]:
         with self._lock:
@@ -114,6 +141,20 @@ class Plan:
             or self.deadline_s is not None
 
     @property
+    def compile_key(self) -> tuple:
+        """What a rows program depends on: (dims, backend, n_blocks),
+        whatever the result options."""
+        return (self.dims, self.backend, self.n_blocks)
+
+    @property
+    def result_key(self) -> tuple:
+        """The plan facets that determine result *content*: grid dims and
+        homology dims.  Backend, sandwich back-end, device, sharding,
+        streaming and chunking give bit-identical diagrams, and epsilon
+        is a lookup-time predicate, so none of them is part of it."""
+        return (self.dims, self.homology_dims)
+
+    @property
     def grid(self) -> Grid:
         return Grid.of(*self.dims)
 
@@ -151,3 +192,31 @@ class Plan:
         return cache.get_or_build(
             ("row_offsets", self.dims, self.device),
             lambda: row_sid_offsets(self.grid, self.device))
+
+    def compile(self, cache: Optional[PlanCache] = None,
+                backend: Optional[Backend] = None) -> "Executable":
+        """Bind the rows program, and the offset tables through ``cache``
+        (the shared default if None).  ``backend`` overrides the registry
+        lookup (the pipeline passes the instance it holds)."""
+        cache = cache or default_plan_cache()
+        be = get_backend(self.backend) if backend is None else backend
+        grid, n_blocks = self.grid, self.n_blocks
+        return Executable(
+            plan=self, backend=be,
+            rows_program=lambda orders: be.rows_for(grid, orders, n_blocks),
+            row_offsets=self.row_offsets(cache), cache=cache)
+
+
+@dataclass(frozen=True)
+class Executable:
+    """A plan with its artifacts bound, ready to execute: ``rows_program``
+    maps orders (B, nv) to the packed rows of the flattened batch,
+    ``row_offsets`` are the scatter's row -> sid tables on the plan's
+    device, out of the :class:`PlanCache`."""
+
+    plan: Plan
+    backend: Backend
+    rows_program: Optional[Callable] = None
+    row_offsets: object = None
+    cache: PlanCache = field(default_factory=default_plan_cache, repr=False,
+                             compare=False)

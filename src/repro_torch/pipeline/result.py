@@ -324,3 +324,7 @@ class DiagramResult:
                 f"trailing bytes in payload ({len(payload) - off})")
         arrs.setdefault("grid_dims", np.asarray(dims, dtype=np.int64))
         return cls(diagram=None, _arrays=arrs)
+
+
+# the name the pipeline facade exports for its results
+PipelineResult = DiagramResult

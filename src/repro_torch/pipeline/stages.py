@@ -42,6 +42,14 @@ from repro_torch.core.gradient import GradientField
 from repro_torch.core.grid import Grid, vertex_order
 
 
+# the wall-time split: the front-end (order + gradient) and the sandwich
+# back-end (critical extraction on); ``comm`` stages nest under the
+# gradient stage of a sharded streamed run and carry the comm-hiding split
+FRONT_STAGE_NAMES = ("order", "gradient")
+BACK_STAGE_NAMES = ("extract_sort", "d0", "d_top", "d1")
+COMM_STAGE_NAMES = ("comm",)
+
+
 def _sync() -> None:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
@@ -97,6 +105,46 @@ class StageReport:
         for k, v in counters.items():
             self.counters[k] = self.counters.get(k, 0) + v
 
+    @property
+    def total_seconds(self) -> float:
+        return self.seconds if self.seconds else \
+            sum(c.total_seconds for c in self.children)
+
+    def _named_seconds(self, names) -> float:
+        return sum(c.total_seconds for c in self.children
+                   if c.name in names)
+
+    @property
+    def front_seconds(self) -> float:
+        """Front-end wall time (order + gradient child stages)."""
+        return self._named_seconds(FRONT_STAGE_NAMES)
+
+    @property
+    def back_seconds(self) -> float:
+        """Sandwich back-end wall time (extract_sort + d0 + d_top + d1)."""
+        return self._named_seconds(BACK_STAGE_NAMES)
+
+    def _counter_sum(self, key: str) -> float:
+        return float(self.counters.get(key, 0.0)) + \
+            sum(c._counter_sum(key) for c in self.children)
+
+    @property
+    def comm_seconds(self) -> float:
+        """Halo-exchange wall time of a sharded run: ``comm`` stages,
+        summed recursively (comm nests under the gradient stage)."""
+        return self._named_seconds(COMM_STAGE_NAMES) + \
+            sum(c.comm_seconds for c in self.children
+                if c.name not in COMM_STAGE_NAMES)
+
+    @property
+    def overlap_fraction(self) -> Optional[float]:
+        """Fraction of halo-exchange time hidden behind compute
+        (``comm_hidden_s / comm_total_s`` over all nested comm stages);
+        ``None`` when the run had no communication."""
+        total = self._counter_sum("comm_total_s")
+        return self._counter_sum("comm_hidden_s") / total \
+            if total > 0 else None
+
     def flat(self) -> Dict[str, float]:
         """Flat stats: stage names -> seconds (nested names dot-joined),
         all counters merged at top level."""
@@ -109,6 +157,20 @@ class StageReport:
             out.update(r.counters)
 
         visit(self, "")
+        return out
+
+    def to_dict(self) -> dict:
+        """Nested machine-readable form (JSON-serializable)."""
+        out = {"name": self.name, "seconds": self.seconds,
+               "counters": dict(self.counters),
+               "children": [c.to_dict() for c in self.children]}
+        if self.children:
+            out["front_seconds"] = self.front_seconds
+            out["back_seconds"] = self.back_seconds
+            comm = self.comm_seconds
+            if comm > 0:
+                out["comm_seconds"] = comm
+                out["overlap_fraction"] = self.overlap_fraction
         return out
 
 
@@ -174,13 +236,24 @@ class GradientStage:
                   **{f"n_critical_d{k}": v for k, v in n_crit.items()})
 
 
+def sandwich_of(cfg):
+    """The config's sandwich back-end (the ``np`` reference when the config
+    names none)."""
+    sb = getattr(cfg, "sandwich", None)
+    if sb is None:
+        from .backends import get_sandwich_backend
+        sb = get_sandwich_backend("np")
+    return sb
+
+
 class CriticalStage:
     """Critical extraction + per-dimension rank sort."""
 
     name = "extract_sort"
 
     def run(self, state: PipelineState, cfg, rep: StageReport) -> None:
-        state.ci = cfg.sandwich.extract(state.grid, state.gf, state.order)
+        state.ci = sandwich_of(cfg).extract(state.grid, state.gf,
+                                            state.order)
 
 
 def _pair_graph(g, cfg, rep: StageReport, prefix: str):
@@ -194,7 +267,7 @@ def _pair_graph(g, cfg, rep: StageReport, prefix: str):
         if prefix == "d0":
             rep.count(d0_corrections=st.corrections)
         return p
-    return cfg.sandwich.pair_d0(g)
+    return sandwich_of(cfg).pair_d0(g)
 
 
 class D0Stage:
@@ -226,7 +299,7 @@ class DualStage:
         if d >= 2:
             state.dual_saddles = (_minus(ci.crit_sids[1], state.d0_saddles)
                                   if d == 2 else ci.crit_sids[d - 1])
-            pD = _pair_graph(cfg.sandwich.build_dual(
+            pD = _pair_graph(sandwich_of(cfg).build_dual(
                 grid, state.gf, ci, state.dual_saddles), cfg, rep, "d_top")
             state.pairs[d - 1] = as_pairs(pD.saddles, pD.extrema)
             state.essential[d] = _sorted(_minus(ci.crit_sids[d], pD.extrema))
@@ -256,8 +329,10 @@ class D1Stage:
                           d1_expansions=st1.expansions, d1_merges=st1.merges,
                           d1_steals=st1.steals)
             else:
-                ss = cfg.sandwich.pair_d1(grid, state.gf, ci, c1, c2)
-                rep.count(d1_expansions=ss.expansions, d1_rounds=ss.rounds)
+                ss = sandwich_of(cfg).pair_d1(grid, state.gf, ci, c1, c2)
+                rep.count(d1_expansions=ss.expansions)
+                if ss.rounds is not None:
+                    rep.count(d1_rounds=ss.rounds)
             state.pairs[1] = as_pairs(ss.pairs[:, 0], ss.pairs[:, 1])
             state.essential[1] = ss.unpaired_edges.long()
             state.essential[2] = ss.unpaired_triangles.long()

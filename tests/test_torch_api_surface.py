@@ -1,0 +1,187 @@
+"""PyTorch port, public surface: the names and signatures of
+``repro_torch.{pipeline, serve, approx, obs, cache}`` held against the
+reference's snapshot ``tests/data/api_surface.json`` under the
+``repro.`` -> ``repro_torch.`` renaming, with the reference's own
+``describe_module``.  Every difference must be one of ``DOCUMENTED``
+(each with its reason), and every documented difference must still be
+one, so the list cannot go stale."""
+
+import json
+import os
+import sys
+
+import pytest
+
+sys.path.insert(0, os.path.dirname(__file__))
+from test_api_surface import MODULES, SNAPSHOT, describe_module  # noqa: E402
+
+# difference key -> reason.  A key is "module.Name" for a name only one
+# side exports, "module.Name()" for a differing signature and
+# "module.Name.member" for a differing class member.
+DOCUMENTED = {
+    "approx.Hierarchy()": "device= in place of the JAX backend= knob",
+    "approx.Hierarchy.error_field": "returns a tensor, not an ndarray",
+    "approx.block_minmax()": "takes a tensor or array and device= in place "
+                             "of backend=",
+    "cache.fingerprint_array()": "takes an ndarray or a tensor, so no "
+                                 "ndarray annotation",
+    "pipeline.Backend()": "rows-based protocol: rows(grid, orders) in place "
+                          "of gradient + batched_rows (eager, no jit)",
+    "pipeline.Backend.batched_rows": "no jitted batched program: rows is "
+                                     "the batched entry",
+    "pipeline.Backend.gradient": "derived from rows, a method here",
+    "pipeline.Backend.rows_for": "rows with the block count of a sharded "
+                                 "backend",
+    "pipeline.BackendCaps()": "only the capabilities the port selects on "
+                              "(streamed, sharded)",
+    "pipeline.BackendCaps.batched": "every port backend is batched",
+    "pipeline.BackendCaps.fused": "no caller selects on it in the port",
+    "pipeline.BackendCaps.jittable": "nothing is jitted in the port",
+    "pipeline.PersistencePipeline()": "defaults fused / torch on cuda, a "
+                                      "Backend instance accepted, device=",
+    "pipeline.PersistencePipeline.lower": "tensors in place of ndarrays "
+                                          "in the annotation",
+    "pipeline.PersistencePipeline.run": "tensors in place of ndarrays in "
+                                        "the annotation",
+    "pipeline.PersistencePipeline.run_batch": "tensors in place of "
+                                              "ndarrays in the annotation",
+    "pipeline.PipelineState()": "tensor fields; the saddle sets are tensors",
+    "pipeline.PipelineState.d0_saddles": "a tensor (None until D0), not a "
+                                         "set factory",
+    "pipeline.PipelineState.dual_paired_saddles": "a tensor (None until "
+                                                  "the dual stage)",
+    "pipeline.Plan()": "the port's fields: device, and sandwich_backend "
+                       "without a default, in another order",
+    "pipeline.Plan.anticipation": "a defaulted field in the port",
+    "pipeline.Plan.budget": "a defaulted field in the port",
+    "pipeline.Plan.distributed": "a defaulted field in the port",
+    "pipeline.Plan.n_blocks": "a defaulted field in the port",
+    "pipeline.Plan.streamed": "a defaulted field in the port",
+    "pipeline.Plan.sandwich_backend": "a required field in the port",
+    "pipeline.Plan.row_offsets": "the offset tables per (dims, device)",
+    "pipeline.WIRE_MAGIC": "exported for the wire-format readers",
+    "serve.generate": "the LM substrate is not ported yet (roadmap "
+                      "item 11)",
+}
+
+
+def _renamed(x):
+    if isinstance(x, dict):
+        return {k: _renamed(v) for k, v in x.items()}
+    if isinstance(x, str):
+        return x.replace("repro.", "repro_torch.")
+    return x
+
+
+def _differences(mod: str, want: dict, got: dict) -> dict:
+    """Difference keys of one module -> (reference, port) descriptions."""
+    short = mod.split(".", 1)[1]
+    out = {}
+    for name in sorted(set(want) | set(got)):
+        a, b = want.get(name), got.get(name)
+        if a == b:
+            continue
+        if a is None or b is None:
+            out[f"{short}.{name}"] = (a, b)
+            continue
+        if a.get("signature") != b.get("signature") \
+                or a.get("kind") != b.get("kind"):
+            out[f"{short}.{name}()"] = (a.get("signature"),
+                                        b.get("signature"))
+        ma, mb = a.get("members", {}), b.get("members", {})
+        for m in sorted(set(ma) | set(mb)):
+            if ma.get(m) != mb.get(m):
+                out[f"{short}.{name}.{m}"] = (ma.get(m), mb.get(m))
+    return out
+
+
+@pytest.fixture(scope="module")
+def differences():
+    snapshot = json.loads(SNAPSHOT.read_text())
+    out = {}
+    for mod in MODULES:
+        port = mod.replace("repro.", "repro_torch.", 1)
+        out.update(_differences(mod, _renamed(snapshot[mod]),
+                                describe_module(port)))
+    return out
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_no_undocumented_difference(differences, module):
+    short = module.split(".", 1)[1] + "."
+    extra = {k: v for k, v in differences.items()
+             if k.startswith(short) and k not in DOCUMENTED}
+    assert not extra, "undocumented surface differences:\n" + "\n".join(
+        f"{k}:\n  reference: {a}\n  port:      {b}"
+        for k, (a, b) in extra.items())
+
+
+def test_no_stale_documented_difference(differences):
+    stale = sorted(set(DOCUMENTED) - set(differences))
+    assert not stale, f"documented differences that no longer differ: " \
+                      f"{stale}"
+
+
+@pytest.mark.parametrize("name", [
+    "Executable", "PipelineConfig", "PipelineResult", "StreamReport",
+    "default_plan_cache"])
+def test_pipeline_exports_reference_names(name):
+    import repro_torch.pipeline as P
+    import repro.pipeline as J
+    assert name in describe_module("repro_torch.pipeline")
+    assert getattr(P, name).__name__ == getattr(J, name).__name__
+
+
+def test_compile_diagram_diagrams_and_report():
+    """The repaired surface behaves as the reference's: a second
+    ``compile`` hits the plan cache, ``diagram`` / ``diagrams`` equal
+    ``run``, and the report's ``to_dict`` is JSON with the reference's
+    keys."""
+    import numpy as np
+    from repro.pipeline import PersistencePipeline as JPipeline
+    from repro_torch.pipeline import (PersistencePipeline, PipelineConfig,
+                                      PlanCache, TopoRequest)
+    f = np.random.default_rng(0).standard_normal((4, 5, 6))
+    pipe = PersistencePipeline(device="cpu", plan_cache=PlanCache())
+    first = pipe.compile(f)
+    hits = pipe.plan_cache.hits
+    again = pipe.compile(TopoRequest(field=f))
+    assert pipe.plan_cache.hits == hits + 1 and len(pipe.plan_cache) == 1
+    assert again.row_offsets is first.row_offsets
+    assert first.plan.compile_key == ((6, 5, 4), "fused", 1)
+    assert first.plan.result_key == ((6, 5, 4), (0, 1, 2, 3))
+    assert ((6, 5, 4) in pipe.plan_cache) is False and bool(PlanCache())
+    res = pipe.run(TopoRequest(field=f, include_report=True))
+    assert pipe.diagram(f).to_bytes() == res.to_bytes()
+    assert [r.to_bytes() for r in pipe.diagrams([f, f])] == \
+        [res.to_bytes()] * 2
+    doc = res.report.to_dict()
+    assert json.loads(json.dumps(doc)) == doc
+    want = JPipeline("np").run(f, include_report=True).report.to_dict()
+    assert set(doc) == set(want)
+    assert [c["name"] for c in doc["children"]] == \
+        [c["name"] for c in want["children"]]
+    assert doc["front_seconds"] + doc["back_seconds"] == \
+        pytest.approx(res.report.total_seconds)
+    with pytest.raises(ValueError, match="same-shape"):
+        pipe.diagrams([f, f[:2]])
+    with pytest.raises(ValueError, match="n_blocks"):
+        PipelineConfig(backend=pipe.backend, n_blocks=0)
+    assert pipe.config.sandwich.name == "torch" and pipe.backend.name == \
+        "fused"
+
+
+def test_stage_report_comm_split_matches_reference():
+    from repro.pipeline import StageReport as JReport
+    from repro_torch.pipeline import StageReport
+    docs = []
+    for cls in (JReport, StageReport):
+        rep = cls("pipeline")
+        for name, secs in (("order", 0.5), ("gradient", 2.0), ("d1", 1.0)):
+            rep.child(name).seconds = secs
+        comm = rep.children[1].child("comm")
+        comm.seconds = 0.25
+        comm.count(comm_total_s=0.25, comm_hidden_s=0.2)
+        docs.append((rep.to_dict(), rep.total_seconds, rep.comm_seconds,
+                     rep.overlap_fraction))
+    assert docs[0] == docs[1]

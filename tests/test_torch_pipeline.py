@@ -207,7 +207,7 @@ def test_request_validation():
     with pytest.raises(UnknownBackendError):
         PersistencePipeline("pallas", device="cpu")
     assert set(available_backends()) == {"fused", "prepass", "torch",
-                                         "shardmap"}
+                                         "shardmap", "np"}
 
 
 def test_default_device_is_cuda_and_raises_without_it(monkeypatch):
@@ -222,7 +222,8 @@ def test_import_loads_neither_jax_nor_repro():
             "repro_torch.fields.generators, repro_torch.core.dms, "
             "repro_torch.approx, repro_torch.cache, repro_torch.serve, "
             "repro_torch.distributed.d1_rounds, "
-            "repro_torch.distributed.pairing_rounds, repro_torch.core.ddms\n"
+            "repro_torch.distributed.pairing_rounds, repro_torch.core.ddms, "
+            "repro_torch.core.reduction\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "assert not bad, bad\nprint('clean')")
