@@ -120,7 +120,34 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               per check with both sides' seconds; launch counters zeroed
               just before and read just after (every kernel launched,
               the plain version never).
-10. timing  — CUDA-event times of ``fused`` and ``prepass`` at 256^3
+10. lm      — the LM substrate's serving path (``repro_torch.models``,
+              ``repro_torch.configs``, ``repro_torch.serve.generate``):
+              the ten smoke architectures on the card against the CPU from
+              one seeded parameter tree (``lm_apply`` logits and aux, two
+              ``decode_step``s with every cache leaf, a greedy ``generate``
+              of 8 tokens); one model per mixer family at full published
+              width, one at a time (minitron-4b dense GQA, mamba2-2.7b SSM,
+              minicpm3-4b MLA decoding naive and absorbed, all their
+              layers; moonshot-v1-16b-a3b MoE cut to 4 of its 48 layers):
+              seeded parameters made on the card, ``generate`` of 32 greedy
+              tokens for 4 prompts of 64 seeded tokens, parameter bytes,
+              prefill and decode seconds, decode tokens per second, peak
+              device memory and the device's time and busy share over 4
+              decode steps (``torch.profiler``'s device events), with
+              prefill by decode steps held against ``lm_apply(prompts)[:,
+              -1]`` in f32 compute and, in bf16, against the f32 forward,
+              the cache leaves' dtypes checked, and control readings of
+              those checks with a known fault injected (each must be
+              caught); and the reference's jnp device
+              programs, ported as torch ops, timed with CUDA events beside
+              their bounds: ``_flash_sdpa`` at minitron-4b's attention (S =
+              4096, causal; against ``_sdpa``, beside
+              ``scaled_dot_product_attention``), ``ssd_chunked`` at
+              mamba2-2.7b's (S = 4096, chunk 256; against the recurrence
+              token by token) and one ``moe`` layer of moonshot at B*S =
+              4096 (against a loop over experts).  Tolerances are stated
+              beside LM_ATOL.  No hand-written kernel runs here.
+11. timing  — CUDA-event times of ``fused`` and ``prepass`` at 256^3
               (``isabel``, ``random``) and 512^3 (``random``) and of the
               plain version at 256^3, each beside its bound (the longer of
               its bytes over 3.35 TB/s and the integer operations the
@@ -135,13 +162,14 @@ The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script prints no result and exits non-zero.
 
-``--timing-of DIR`` runs only phase 10 (without the plain version) on the
+``--timing-of DIR`` runs only phase 11 (without the plain version) on the
 port in another tree DIR, for instance the parent commit unpacked with
 ``git archive`` into a git-ignored directory; it prints no result lines.
 To compare two trees, time them in turns in one call on one card (A, B,
 B, A).
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1589,6 +1617,628 @@ def phase_oracle(n_rows=16, n_big=32, n_np=16, n_mixed=32):
     return launches
 
 
+# --------------------------------------------------------------------------
+# [lm]: the LM substrate's serving path (models/, configs/, serve.generate)
+# --------------------------------------------------------------------------
+
+# card against CPU at smoke size: logits within LM_ATOL (8 bf16 ulps at the
+# smoke logits' |x| < 1; cuBLAS and the CPU accumulate the same bf16
+# products in another order), cache leaves within LM_LEAF_TOL of the
+# leaf's largest magnitude (8 ulps of its largest entry), dtypes equal;
+# greedy tokens equal up to the first step where they differ, which must
+# be a near tie (the CPU's top-1/top-2 margin <= 2 * LM_ATOL)
+LM_ATOL = 0.03
+LM_LEAF_TOL = 2.0 ** -5
+# the full-width models (name, layers kept or None for all), one per mixer
+# family; moonshot's 48 layers hold 112 GB of f32 parameters, so 4
+LM_FULL = (("minitron-4b", None), ("mamba2-2.7b", None),
+           ("minicpm3-4b", None), ("moonshot-v1-16b-a3b", 4))
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 64, 32
+LM_PROFILE_STEPS = 4
+# prefill by decode steps (what generate does) against lm_apply(prompts)
+# [:, -1], as the RMS of the difference over the RMS of the second, on the
+# real vocabulary.  In f32 compute (COMPUTE_DTYPE float32 for the check)
+# the two differ only by f32 rounding: LM_F32_TOL.  In the reference's
+# dtypes (bf16 compute) 32-64 random layers amplify the rounding of GEMMs
+# that sum in another order (0.043-0.060 on the card), so the served
+# path is held to the f32 forward instead: the bf16 prefill's distance
+# to it at most LM_BF16_RATIO times the bf16 forward's own.  Sound paths
+# read 0.92-1.04 on the card (the absorbed MLA, which reassociates the
+# bf16 products, the highest); the controls below read 2.45-5.96, so the
+# gate lies between.  Absorbed against naive MLA: within LM_F32_TOL in
+# f32 compute, the same ratio in bf16.
+LM_F32_TOL = 1e-3
+LM_BF16_RATIO = 1.5
+# known faults of the decode path (_lm_fault), read on every run: each
+# must fail the bf16 gate or the cache dtype check (_lm_cache_dtype_faults)
+# -- the SSM state kept bf16 moves the logits less than bf16 rounding
+# does (0.96x on the card), so only its dtype shows it
+LM_CONTROLS = ("cache_fp8", "act_fp8", "state_bf16")
+H100_BF16_FLOPS = 989e12       # dense tensor-core bf16 (data sheet)
+H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
+
+
+def _lm_leaves(tree, prefix=""):
+    out = {}
+    for k in sorted(tree):
+        v = tree[k]
+        if isinstance(v, dict):
+            out.update(_lm_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _lm_caches_close(a, b, what):
+    """Max |a - b| over the leaves of two caches (same keys, shapes and
+    dtypes; integer leaves equal; floats within LM_LEAF_TOL)."""
+    import torch
+    la, lb = _lm_leaves(a), _lm_leaves(b)
+    if sorted(la) != sorted(lb):
+        raise AssertionError(f"[lm] {what}: cache keys {sorted(la)}")
+    err = 0.0
+    for k, x in la.items():
+        y = lb[k].to(x.device)
+        if x.dtype != y.dtype or x.shape != y.shape:
+            raise AssertionError(f"[lm] {what} {k}: {x.dtype}{tuple(x.shape)}"
+                                 f" vs {y.dtype}{tuple(y.shape)}")
+        if not x.is_floating_point():
+            if not torch.equal(x, y):
+                raise AssertionError(f"[lm] {what} {k} differs")
+            continue
+        d = float((x.float() - y.float()).abs().max())
+        if d > LM_LEAF_TOL * max(float(y.float().abs().max()), 1e-30):
+            raise AssertionError(f"[lm] {what} {k}: max |diff| {d}")
+        err = max(err, d)
+    return err
+
+
+def _lm_logits_close(a, b, what, atol=LM_ATOL):
+    d = float((a.float().cpu() - b.float().cpu()).abs().max())
+    if not d <= atol:
+        raise AssertionError(f"[lm] {what}: max |diff| {d} > {atol}")
+    return d
+
+
+def _lm_smoke_inputs(cfg, rng):
+    import numpy as np
+    import torch
+    tokens = rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32)
+    prompts = rng.integers(0, cfg.vocab, (2, 3)).astype(np.int32)
+    frontend = None
+    if cfg.enc_dec:
+        frontend = rng.standard_normal((2, cfg.enc_len, cfg.d_model))
+    elif cfg.frontend == "vision_stub":
+        frontend = rng.standard_normal((2, cfg.n_patches, cfg.d_model))
+    if frontend is not None:
+        frontend = torch.from_numpy(frontend).to(torch.bfloat16)
+    return tokens, prompts, frontend
+
+
+def lm_smoke(arch, dev):
+    """One smoke architecture on ``dev`` against the CPU: one seeded
+    parameter tree given to both, ``lm_apply``, two ``decode_step``s and
+    a greedy ``generate`` of 8 tokens."""
+    import zlib
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_jax, params_to_numpy
+    from repro_torch.serve import generate
+    cfg = smoke_config(arch)
+    cpu = T.init_params(cfg, SEED, device="cpu")
+    card = params_from_jax(cfg, params_to_numpy(cpu), device=dev)
+    tokens, prompts, frontend = _lm_smoke_inputs(
+        cfg, np.random.default_rng(zlib.crc32(arch.encode())))
+    out = {}
+    with torch.no_grad():
+        runs = {}
+        for name, p, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+            fe = None if frontend is None else frontend.to(d)
+            logits, aux = T.lm_apply(cfg, p, torch.from_numpy(tokens).to(d),
+                                     fe)
+            cache = T.init_cache(cfg, 2, 12, device=d)
+            if cfg.enc_dec:
+                cache = dict(cache, enc_out=T._encoder_apply(cfg, p, fe)
+                             .to(torch.bfloat16))
+            steps = []
+            for t in (prompts[:, 0], prompts[:, 1]):
+                lg, cache = T.decode_step(cfg, p, cache,
+                                          torch.from_numpy(t).to(d))
+                steps.append((lg, cache))
+            runs[name] = (logits, aux, steps)
+        (lc, ac, sc), (lg, ag, sg) = runs["cpu"], runs["card"]
+        out["lm_apply"] = _lm_logits_close(lg, lc, f"{arch} lm_apply")
+        if abs(float(ag) - float(ac)) > 1e-3 * max(abs(float(ac)), 1.0):
+            raise AssertionError(f"[lm] {arch} aux {float(ag)} vs "
+                                 f"{float(ac)}")
+        out["decode"] = max(_lm_logits_close(g[0], c[0], f"{arch} step {i}")
+                            for i, (g, c) in enumerate(zip(sg, sc)))
+        out["cache"] = max(_lm_caches_close(g[1], c[1], f"{arch} step {i}")
+                           for i, (g, c) in enumerate(zip(sg, sc)))
+        # greedy generate: tokens equal up to their first difference, where
+        # every row that differs is at a near tie of the CPU's logits
+        # (teacher-forced along its tokens)
+        fe = None if frontend is None else frontend
+        want = generate(cfg, cpu, prompts, 8, frontend=fe, device="cpu")
+        got = generate(cfg, card, prompts, 8, device=dev,
+                       frontend=None if fe is None else fe.to(dev))
+        differs = np.flatnonzero((got != want).any(axis=0))
+        same = int(differs[0]) if len(differs) else 8
+        if same < 8:
+            from repro_torch.serve.engine import prefill
+            fed = torch.from_numpy(np.concatenate([prompts, want[:, :same]],
+                                                  axis=1))
+            logits, _ = prefill(cfg, cpu, fed, 12, fe)
+            top = torch.topk(logits, 2, dim=-1).values
+            rows = torch.from_numpy(got[:, same] != want[:, same])
+            margin = float((top[:, 0] - top[:, 1])[rows].max())
+            if margin > 2 * LM_ATOL:
+                raise AssertionError(f"[lm] {arch}: generate differs at "
+                                     f"step {same}, margin {margin}")
+        out["generate_steps_equal"] = same
+    return out
+
+
+def _lm_device_busy(step, n):
+    """(host ms per call, device ms per call, device busy share) over
+    ``n`` calls of ``step()`` under ``torch.profiler``.  Device time is
+    the time covered by the trace's device events (kernels, copies, sets:
+    the events of device type CUDA), their intervals merged; the aten ops
+    that launched them carry the same time as their own device time and
+    are not counted again.  The share is that time over the wall time;
+    the profiler's own host cost lengthens the wall, so it is a lower
+    bound.  Device ms and share are None if the trace shows no device
+    event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    if not busy_us:
+        return wall / n * 1e3, None, None
+    return wall / n * 1e3, busy_us * 1e-3 / n, busy_us * 1e-6 / wall
+
+
+@contextlib.contextmanager
+def _compute_dtype(layers, dtype):
+    """The LM layers' compute dtype set to ``dtype`` for a check."""
+    old = layers.COMPUTE_DTYPE
+    layers.COMPUTE_DTYPE = dtype
+    try:
+        yield
+    finally:
+        layers.COMPUTE_DTYPE = old
+
+
+def _fp8_round(x):
+    """``x`` rounded through float8 e4m3 (its range clamped first) and
+    back to its dtype."""
+    import torch
+    return x.clamp(-448, 448).to(torch.float8_e4m3fn).to(x.dtype)
+
+
+@contextlib.contextmanager
+def _lm_fault(fault):
+    """A known fault of the decode path, injected for a control reading of
+    the bf16 prefill gate: ``cache_fp8`` rounds every float cache leaf
+    through float8 after each decode step (a wrongly typed cache),
+    ``act_fp8`` rounds every RMSNorm output, the input of each mixer, FFN
+    and the unembedding, through float8 (decode computed in a lower
+    precision), ``state_bf16`` keeps the SSM state bf16 between steps
+    (not promoted to f32 at the first step)."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    def leaves(tree, leaf):
+        return {k: leaves(v, leaf) if isinstance(v, dict) else leaf(k, v)
+                for k, v in tree.items()}
+
+    def cache_fp8(k, v):
+        return _fp8_round(v) if v.is_floating_point() else v
+
+    def state_bf16(k, v):
+        return v.to(torch.bfloat16) if k == "state" else v
+
+    if fault == "act_fp8":
+        patch, orig = (L, "rmsnorm"), L.rmsnorm
+
+        def fn(*a, **kw):
+            return _fp8_round(orig(*a, **kw))
+    else:
+        leaf = {"cache_fp8": cache_fp8, "state_bf16": state_bf16}[fault]
+        patch, orig = (T, "decode_step"), T.decode_step
+
+        def fn(cfg, params, cache, token):
+            logits, cache = orig(cfg, params, cache, token)
+            return logits, leaves(cache, leaf)
+    setattr(*patch, fn)
+    try:
+        yield
+    finally:
+        setattr(*patch, orig)
+
+
+def _lm_cache_dtype_faults(cache):
+    """The float cache leaves not in the reference's dtypes after a decode
+    step: the SSM state f32 (bf16 state x f32 decay promotes at the first
+    step), every other float leaf bf16."""
+    import torch
+    return [k for k, v in _lm_leaves(cache).items() if v.is_floating_point()
+            and v.dtype != (torch.float32 if k.split("/")[-1] == "state"
+                            else torch.bfloat16)]
+
+
+def _lm_bytes(params):
+    return sum(p.numel() * p.element_size() for p in params.parameters())
+
+
+def _lm_rms_rel(a, b):
+    """RMS of a - b over the RMS of b, on the real vocabulary."""
+    ok = b > -1e29
+    d = (a.float() - b.float())[ok]
+    return float(d.pow(2).mean().sqrt() / b.float()[ok].pow(2).mean().sqrt())
+
+
+def lm_full(name, n_layers, dev, smi, cfg=None):
+    """One model at full published width on ``dev``: seeded parameters
+    from a generator on the device, prefill (held against ``lm_apply``,
+    then timed), then ``generate`` of LM_STEPS greedy tokens for
+    LM_BATCH prompts of LM_PROMPT seeded tokens (timed); MLA also decodes
+    absorbed.  Frees the model before it returns."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import generate
+    from repro_torch.serve.engine import prefill
+
+    sync = torch.cuda.synchronize
+    cfg = cfg or get_config(name)
+    full_layers = cfg.n_layers
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, SEED, device=dev)
+    sync()
+    init_s = time.perf_counter() - t0
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    prompts = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT),
+                            generator=gen, device=dev, dtype=torch.int32)
+    max_len = LM_PROMPT + LM_STEPS + 1
+    rec = dict(model=name, layers=cfg.n_layers, published_layers=full_layers,
+               d_model=cfg.d_model, param_bytes=_lm_bytes(params),
+               init_s=round(init_s, 3))
+
+    def clocked(fn):
+        """fn()'s result and its seconds, from and to a synchronize."""
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        return out, time.perf_counter() - t0
+
+    def timed(prefix=""):
+        """Decode = generate of LM_STEPS tokens less the prefill timed
+        before it (the prompt's P decode steps, whose logits give the
+        first token): its LM_STEPS - 1 decode steps more."""
+        toks, rec[prefix + "generate_s"] = clocked(
+            lambda: generate(cfg, params, prompts, LM_STEPS, device=dev))
+        if toks.shape != (LM_BATCH, LM_STEPS) or not (
+                (toks >= 0) & (toks < cfg.vocab)).all():
+            raise AssertionError(f"[lm] {name}: tokens {toks.shape}")
+        rec[prefix + "decode_s"] = rec[prefix + "generate_s"] \
+            - rec[prefix + "prefill_s"]
+        rec[prefix + "decode_tokens_per_s"] = LM_BATCH * (LM_STEPS - 1) \
+            / rec[prefix + "decode_s"]
+        return toks
+
+    with torch.no_grad():
+        last, cache = prefill(cfg, params, prompts, max_len)
+        rec["cache_dtype_faults"] = _lm_cache_dtype_faults(cache)
+        del cache
+        # MoE drops by capacity over the tokens routed together (B at a
+        # decode step, B*S in the forward): the check runs MoE at a
+        # capacity factor of n_experts, where nothing is dropped
+        check_cfg = cfg if cfg.moe is None else dataclasses.replace(
+            cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=float(cfg.moe.n_experts)))
+        step_last = last if cfg.moe is None else \
+            prefill(check_cfg, params, prompts, max_len)[0]
+        ref_last = T.lm_apply(check_cfg, params, prompts)[0][:, -1]
+        with _compute_dtype(L, torch.float32):
+            f32_last = T.lm_apply(check_cfg, params, prompts)[0][:, -1]
+            f32_step = prefill(check_cfg, params, prompts, max_len)[0]
+        rec["prefill_vs_lm_apply_f32"] = _lm_rms_rel(f32_step, f32_last)
+        rec["prefill_vs_lm_apply"] = _lm_rms_rel(step_last, ref_last)
+        rec["lm_apply_vs_f32"] = _lm_rms_rel(ref_last, f32_last)
+        rec["prefill_vs_f32"] = _lm_rms_rel(step_last, f32_last)
+        rec["prefill_top1_equal"] = int((step_last.argmax(-1)
+                                         == ref_last.argmax(-1)).sum())
+        if cfg.moe is not None:
+            rec["published_capacity_vs_lm_apply"] = _lm_rms_rel(last,
+                                                                ref_last)
+        if cfg.mla is not None:
+            L.MLA_ABSORBED_DECODE = True
+            try:
+                (abs_last, _), rec["absorbed_prefill_s"] = clocked(
+                    lambda: prefill(cfg, params, prompts, max_len))
+                with _compute_dtype(L, torch.float32):
+                    f32_abs = prefill(cfg, params, prompts, max_len)[0]
+            finally:
+                L.MLA_ABSORBED_DECODE = False
+            rec["absorbed_vs_naive_f32"] = _lm_rms_rel(f32_abs, f32_step)
+            rec["absorbed_vs_naive"] = _lm_rms_rel(abs_last, last)
+            rec["absorbed_vs_f32"] = _lm_rms_rel(abs_last, f32_last)
+            del abs_last, f32_abs
+        del ref_last, step_last, f32_step
+        bound = LM_BF16_RATIO * rec["lm_apply_vs_f32"]
+        bad = [k for k, lim in (
+            ("prefill_vs_lm_apply_f32", LM_F32_TOL),
+            ("absorbed_vs_naive_f32", LM_F32_TOL),
+            ("prefill_vs_f32", bound), ("absorbed_vs_f32", bound))
+            if k in rec and not rec[k] <= lim]
+        bad += ["cache_dtype_faults"] if rec["cache_dtype_faults"] else []
+        if bad:
+            raise AssertionError(f"[lm] {name}: {bad} out of tolerance: "
+                                 f"{rec}")
+        # control readings: the same checks with a known fault in the
+        # decode path (each must fail one of them, checked at the end)
+        controls = {}
+        for fault in LM_CONTROLS:
+            if fault == "state_bf16" and cfg.ssm is None:
+                continue
+            with _lm_fault(fault):
+                ctrl, ctrl_cache = prefill(check_cfg, params, prompts,
+                                           max_len)
+            ratio = _lm_rms_rel(ctrl, f32_last) / rec["lm_apply_vs_f32"]
+            faults = len(_lm_cache_dtype_faults(ctrl_cache))
+            rec[f"control_{fault}_ratio"] = ratio
+            rec[f"control_{fault}_dtype_faults"] = faults
+            controls[fault] = ratio > LM_BF16_RATIO or faults > 0
+            del ctrl, ctrl_cache
+        (_, cache), rec["prefill_s"] = clocked(
+            lambda: prefill(cfg, params, prompts, max_len))
+        toks = timed()
+        if cfg.mla is not None:
+            L.MLA_ABSORBED_DECODE = True
+            try:
+                abs_toks = timed("absorbed_")
+            finally:
+                L.MLA_ABSORBED_DECODE = False
+            rec["absorbed_tokens_equal"] = int(
+                (abs_toks == toks).all(axis=0).cumprod().sum())
+        # the device's busy share over decode steps (host-bound or not)
+        tok = toks[:, 0]
+        (rec["profiled_step_ms"], rec["device_ms_per_step"],
+         rec["device_busy_share"]) = _lm_device_busy(
+            lambda: T.decode_step(cfg, params, cache, tok), LM_PROFILE_STEPS)
+        # the same device time over an unprofiled decode step of generate
+        if rec["device_ms_per_step"] is not None:
+            rec["device_share_of_decode_step"] = rec["device_ms_per_step"] \
+                / (rec["decode_s"] * 1e3 / (LM_STEPS - 1))
+        del cache
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, last, f32_last
+    torch.cuda.empty_cache()
+    log("lm", **rec, smi=smi)
+    blind = [f for f, seen in controls.items() if not seen]
+    if blind:
+        raise AssertionError(f"[lm] {name}: no check sees the faults "
+                             f"{blind} (bf16 gate {LM_BF16_RATIO}x)")
+    return rec
+
+
+def _recurrence(x, a, B, C):
+    """The SSM run token by token in f32: h_t = exp(a_t) h_{t-1} +
+    x_t B_t^T, y_t = h_t C_t."""
+    import torch
+    b, l, h, p = x.shape
+    st = torch.zeros((b, h, p, B.shape[-1]), device=x.device)
+    ys = []
+    for t in range(l):
+        st = st * torch.exp(a[:, t])[..., None, None] \
+            + x[:, t, :, :, None].float() * B[:, t, None, None, :].float()
+        ys.append(torch.einsum("bhpn,bn->bhp", st, C[:, t].float()))
+    return torch.stack(ys, dim=1)
+
+
+def _moe_per_expert(cfg, params, x):
+    """The capacity MoE as a loop over experts (positions in each queue
+    from a cumulative count over a one-hot, not a sort): the plain
+    formulation ``moe``'s sort-based dispatch is held against."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    mo = cfg.moe
+    B, S, d = x.shape
+    E, k = mo.n_experts, mo.top_k
+    xt = x.reshape(B * S, d)
+    # the router's logits by the same call as moe's (a top-k near tie
+    # must not flip between two GEMMs that sum in another order)
+    logits = L._einsum("bsd,de->bse", x, L.cast(params["router"])) \
+        .float().reshape(B * S, E)
+    gv, gi = torch.topk(torch.softmax(logits, -1), k, dim=-1)
+    gv = (gv / gv.sum(-1, keepdim=True)).to(x.dtype)
+    cap = math.ceil(mo.capacity_factor * B * S * k / E)
+    flat = gi.reshape(-1)
+    onehot = F.one_hot(flat, E)
+    pos = (onehot.cumsum(0) - 1).gather(1, flat[:, None])[:, 0]
+    keep = (pos < cap).reshape(B * S, k)
+    out = torch.zeros((B * S, d), dtype=torch.float32, device=x.device)
+    for e in range(E):
+        tok, j = torch.nonzero((gi == e) & keep, as_tuple=True)
+        if len(tok) == 0:
+            continue
+        xe = xt[tok]
+        h = F.silu(xe @ params["wg"][e].to(x.dtype)) \
+            * (xe @ params["wu"][e].to(x.dtype))
+        y = h @ params["wd"][e].to(x.dtype)
+        out.index_add_(0, tok, (y * gv[tok, j][:, None]).float())
+    return out.to(x.dtype).reshape(B, S, d), int(keep.sum())
+
+
+def lm_timing(dev, smi, flash=(1, 4096, 24, 8, 128), ssd=(1, 4096, 80, 64,
+                                                         128, 256),
+              moe_cfg=None, moe_tokens=(4, 1024), reps=3):
+    """The LM substrate's jnp device programs, ported as torch ops, at
+    full width with CUDA events, each beside its bound and checked:
+    ``_flash_sdpa`` at minitron-4b's attention (against ``_sdpa``, with
+    ``scaled_dot_product_attention`` timed as the library yardstick),
+    ``ssd_chunked`` at mamba2-2.7b's (against the recurrence token by
+    token), one ``moe`` layer of moonshot-v1-16b-a3b at B*S = 4096
+    (against a loop over experts)."""
+    import math
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf16 = torch.bfloat16
+    out = {}
+    with torch.no_grad():
+        # flash attention, causal, minitron-4b's heads
+        B, S, H, Kv, hd = flash
+        q = torch.randn((B, S, H, hd), generator=gen, device=dev).to(bf16)
+        k = torch.randn((B, S, Kv, hd), generator=gen, device=dev).to(bf16)
+        v = torch.randn((B, S, Kv, hd), generator=gen, device=dev).to(bf16)
+        got = L._flash_sdpa(q, k, v, True)
+        mask = (torch.arange(S, device=dev)[:, None]
+                >= torch.arange(S, device=dev)[None, :])[None, None, None]
+        want = L._sdpa(q, k, v, mask)
+        err = float((got.float() - want.float()).abs().max())
+        tol = LM_LEAF_TOL * float(want.float().abs().max())
+        del want, mask
+        qh, kh, vh = (t.transpose(1, 2) for t in (
+            q, k.repeat_interleave(H // Kv, 2), v.repeat_interleave(H // Kv,
+                                                                    2)))
+        lib = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        lib_err = float((lib.transpose(1, 2).float() - got.float())
+                        .abs().max())
+        if not (err <= tol and lib_err <= tol):
+            raise AssertionError(f"[lm] _flash_sdpa: {err} vs _sdpa, "
+                                 f"{lib_err} vs sdpa > {tol}")
+        ms = cuda_ms(lambda: L._flash_sdpa(q, k, v, True), reps)
+        lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), reps)
+        flops = 4 * B * H * hd * S * (S + 1) // 2
+        nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * Kv * hd)
+        out["_flash_sdpa"] = _lm_bound_line(
+            "_flash_sdpa", dict(B=B, S=S, H=H, Kv=Kv, hd=hd, causal=True),
+            ms, flops, H100_BF16_FLOPS, nbytes, smi, max_abs_err=err,
+            tolerance=tol, library="scaled_dot_product_attention",
+            library_ms=lib_ms, library_err=lib_err)
+        del q, k, v, qh, kh, vh, lib, got
+
+        # chunked SSD, mamba2-2.7b's heads (80 x 64, state 128, chunk 256)
+        b, l, h, p, n, chunk = ssd
+        x = torch.randn((b, l, h, p), generator=gen, device=dev).to(bf16)
+        a = -(torch.rand((b, l, h), generator=gen, device=dev) * 0.49
+              + 0.01)
+        Bm = torch.randn((b, l, n), generator=gen, device=dev).to(bf16)
+        Cm = torch.randn((b, l, n), generator=gen, device=dev).to(bf16)
+        got = L.ssd_chunked(x, a, Bm, Cm, chunk)
+        want = _recurrence(x, a, Bm, Cm)
+        err = float((got - want).abs().max())
+        tol = 1e-3 * float(want.abs().max())
+        if not err <= tol:
+            raise AssertionError(f"[lm] ssd_chunked vs recurrence {err} > "
+                                 f"{tol}")
+        del want
+        ms = cuda_ms(lambda: L.ssd_chunked(x, a, Bm, Cm, chunk), reps)
+        c = l // chunk
+        flops = 2 * (c * chunk * chunk * n + c * h * chunk * chunk * p
+                     + 2 * c * h * chunk * p * n + h * (c + 1) ** 2 * p * n)
+        nbytes = x.numel() * 2 + a.numel() * 4 + 2 * Bm.numel() * 2 \
+            + got.numel() * 4
+        out["ssd_chunked"] = _lm_bound_line(
+            "ssd_chunked", dict(b=b, l=l, h=h, p=p, n=n, chunk=chunk), ms,
+            flops, H100_F32_FLOPS, nbytes, smi, max_abs_err=err,
+            tolerance=tol, library=None, library_ms=None)
+        del x, a, Bm, Cm, got
+
+        # one MoE layer of moonshot-v1-16b-a3b (64 experts, top 6)
+        cfg = moe_cfg or get_config("moonshot-v1-16b-a3b")
+        mo = cfg.moe
+        params = {nm: (torch.randn(pm.shape, generator=gen, device=dev)
+                       * 0.02) for nm, pm in L.moe_meta(cfg).items()}
+        Bt, St = moe_tokens
+        x = torch.randn((Bt, St, cfg.d_model), generator=gen,
+                        device=dev).to(bf16)
+        got, aux = L.moe(cfg, params, x)
+        want, kept = _moe_per_expert(cfg, params, x)
+        err = float((got.float() - want.float()).abs().max())
+        tol = LM_LEAF_TOL * float(want.float().abs().max())
+        if not err <= tol:
+            raise AssertionError(f"[lm] moe vs per-expert loop {err} > "
+                                 f"{tol}")
+        ms = cuda_ms(lambda: L.moe(cfg, params, x), reps)
+        d, fe, E = cfg.d_model, mo.d_expert, mo.n_experts
+        flops = 2 * kept * 3 * d * fe + 2 * Bt * St * d * E
+        nbytes = sum(t.numel() * 4 for t in params.values()) \
+            + 2 * x.numel() * 2
+        out["moe"] = _lm_bound_line(
+            "moe", dict(tokens=Bt * St, d=d, experts=E, top_k=mo.top_k,
+                        d_expert=fe, kept=kept, capacity=math.ceil(
+                            mo.capacity_factor * Bt * St * mo.top_k / E)),
+            ms, flops, H100_BF16_FLOPS, nbytes, smi, max_abs_err=err,
+            tolerance=tol, library=None, library_ms=None)
+    return out
+
+
+def _lm_bound_line(name, shape, ms, flops, rate, nbytes, smi, **kw):
+    t_ops = flops / rate * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    bound, by = (t_ops, "operations") if t_ops >= t_bytes else \
+        (t_bytes, "bytes")
+    rec = dict(program=name, ms=ms, bound_ms=bound, bound_by=by,
+               flops=flops, bytes=nbytes, **kw)
+    log("lm", **rec, shape=shape, smi=smi)
+    return rec
+
+
+def phase_lm(dev="cuda", archs=None, full=LM_FULL, full_cfgs=None,
+             timing=None):
+    """[lm]: the ten smoke architectures on the card against the CPU, one
+    model per mixer family served at full published width, and the
+    non-Pallas device programs timed beside their bounds."""
+    from repro_torch.configs import ARCHS
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    for arch in archs or sorted(ARCHS):
+        t0 = time.perf_counter()
+        r = lm_smoke(arch, dev)
+        log("lm", smoke=arch, seconds=round(time.perf_counter() - t0, 3),
+            **r)
+    for name, n_layers in full:
+        lm_full(name, n_layers, dev, smi,
+                cfg=(full_cfgs or {}).get(name))
+    lm_timing(dev, smi, **(timing or {}))
+    log("lm", seconds=round(time.perf_counter() - t_phase, 3), smi=smi)
+
+
 def phase_timing(isabel_256, report, plain=True):
     """CUDA-event times of both kernels on the [timing] fields, each beside
     its bound; ``report`` ([ptxas] phase) adds the launch shape, and
@@ -1746,6 +2396,7 @@ def main(argv):
     phase_serve(fields)
     phase_cpu()
     oracle_launches = phase_oracle()
+    phase_lm()
     rec = phase_timing(isabel, report)
     kernels = []
     for key, src, line in (("fused", "fused.cu", 255),

@@ -1,5 +1,5 @@
-"""Batched persistence-diagram serving (PyTorch counterpart of
-``repro.serve``, without the LM ``generate``).
+"""Serving (PyTorch counterpart of ``repro.serve``): LM decode with
+:func:`generate`, and batched persistence-diagram serving.
 
 :class:`TopoService` coalesces concurrent requests into batched pipeline
 dispatches on the pipeline's device, answers progressive requests with a
@@ -15,6 +15,7 @@ from repro_torch.cache import (AdmissionPolicy, DiagramCache,  # noqa: F401
 from repro_torch.obs.exposition import (MetricsServer,  # noqa: F401
                                         serve_metrics)
 
-from .engine import serve_topo, stats_payload, topo_payload  # noqa: F401
+from .engine import (generate, serve_topo, stats_payload,  # noqa: F401
+                     topo_payload)
 from .topo_service import (ProgressiveFuture, ServiceStats,  # noqa: F401
                            TopoService)
