@@ -126,9 +126,10 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               one seeded parameter tree (``lm_apply`` logits and aux, two
               ``decode_step``s with every cache leaf, a greedy ``generate``
               of 8 tokens); one model per mixer family at full published
-              width, one at a time (minitron-4b dense GQA, mamba2-2.7b SSM,
-              minicpm3-4b MLA decoding naive and absorbed, all their
-              layers; moonshot-v1-16b-a3b MoE cut to 4 of its 48 layers):
+              width, one at a time (minitron-4b dense GQA and mamba2-2.7b
+              SSM, all their layers; minicpm3-4b MLA decoding naive and
+              absorbed, cut to 16 of its 62 layers; moonshot-v1-16b-a3b
+              MoE cut to 4 of its 48 layers):
               seeded parameters made on the card, ``generate`` of 32 greedy
               tokens for 4 prompts of 64 seeded tokens, parameter bytes,
               prefill and decode seconds, decode tokens per second, peak
@@ -147,7 +148,32 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               token by token) and one ``moe`` layer of moonshot at B*S =
               4096 (against a loop over experts).  Tolerances are stated
               beside LM_ATOL.  No hand-written kernel runs here.
-11. timing  — CUDA-event times of ``fused`` and ``prepass`` at 256^3
+11. train   — the LM substrate's training (``repro_torch.data``,
+              ``repro_torch.train``, ``repro_torch.launch``): the ten
+              smoke architectures' train-step gradients on the card
+              against the CPU from one seeded tree, microbatches=2 and
+              remat against the card's own plain gradient, one AdamW step
+              on each device; the restart of ``run`` bit for bit on the
+              card under deterministic algorithms (10 steps against 5, a
+              crash and a resume, every parameter and moment) and a
+              checkpoint of it read back onto the CPU; h2o-danube-3-4b
+              (dense GQA with a 4096 window, 24 layers) and mamba2-2.7b
+              (SSM, 64 layers) trained at full width and depth, B 1 x S
+              4096 with remat, 4 steps on one batch (the loss must fall),
+              with a directional-derivative check in f32 compute at step
+              0, the static bytes, peak device memory, seconds per step
+              (the first apart), tokens per second and the device's busy
+              share over a profiled step; the backward passes of
+              ``_flash_sdpa`` (against ``_sdpa``'s, beside
+              ``scaled_dot_product_attention``'s) and ``ssd_chunked`` at
+              those shapes beside their bounds; and the topology monitor
+              of ``examples/train_topo_monitor_torch.py`` (a 16 x 16 loss
+              landscape) through ``TopoService`` on the fused kernel,
+              its diagram equal to the ``np`` back-end's, its launches
+              counted (zeroed just before, read just after) and its
+              re-check a cache hit that launches nothing.  Tolerances
+              are stated beside TRAIN_LOSS_RTOL.
+12. timing  — CUDA-event times of ``fused`` and ``prepass`` at 256^3
               (``isabel``, ``random``) and 512^3 (``random``) and of the
               plain version at 256^3, each beside its bound (the longer of
               its bytes over 3.35 TB/s and the integer operations the
@@ -162,7 +188,7 @@ The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script prints no result and exits non-zero.
 
-``--timing-of DIR`` runs only phase 11 (without the plain version) on the
+``--timing-of DIR`` runs only phase 12 (without the plain version) on the
 port in another tree DIR, for instance the parent commit unpacked with
 ``git archive`` into a git-ignored directory; it prints no result lines.
 To compare two trees, time them in turns in one call on one card (A, B,
@@ -1630,9 +1656,12 @@ def phase_oracle(n_rows=16, n_big=32, n_np=16, n_mixed=32):
 LM_ATOL = 0.03
 LM_LEAF_TOL = 2.0 ** -5
 # the full-width models (name, layers kept or None for all), one per mixer
-# family; moonshot's 48 layers hold 112 GB of f32 parameters, so 4
+# family; moonshot's 48 layers hold 112 GB of f32 parameters, so 4.
+# minicpm3-4b runs 16 of its 62 layers: at 62 its prefills (11.8 s each,
+# naive, absorbed, f32 and the controls) were the longest part of [lm],
+# and [train] needs that time within the script's limit
 LM_FULL = (("minitron-4b", None), ("mamba2-2.7b", None),
-           ("minicpm3-4b", None), ("moonshot-v1-16b-a3b", 4))
+           ("minicpm3-4b", 16), ("moonshot-v1-16b-a3b", 4))
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 64, 32
 LM_PROFILE_STEPS = 4
 # prefill by decode steps (what generate does) against lm_apply(prompts)
@@ -2208,14 +2237,15 @@ def lm_timing(dev, smi, flash=(1, 4096, 24, 8, 128), ssd=(1, 4096, 80, 64,
     return out
 
 
-def _lm_bound_line(name, shape, ms, flops, rate, nbytes, smi, **kw):
+def _lm_bound_line(name, shape, ms, flops, rate, nbytes, smi, phase="lm",
+                   **kw):
     t_ops = flops / rate * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     bound, by = (t_ops, "operations") if t_ops >= t_bytes else \
         (t_bytes, "bytes")
     rec = dict(program=name, ms=ms, bound_ms=bound, bound_by=by,
                flops=flops, bytes=nbytes, **kw)
-    log("lm", **rec, shape=shape, smi=smi)
+    log(phase, **rec, shape=shape, smi=smi)
     return rec
 
 
@@ -2237,6 +2267,523 @@ def phase_lm(dev="cuda", archs=None, full=LM_FULL, full_cfgs=None,
                 cfg=(full_cfgs or {}).get(name))
     lm_timing(dev, smi, **(timing or {}))
     log("lm", seconds=round(time.perf_counter() - t_phase, 3), smi=smi)
+
+
+# --------------------------------------------------------------------------
+# [train]: the LM substrate's training (data/, train/, launch/, the monitor)
+# --------------------------------------------------------------------------
+
+# one train step's gradient, card against CPU at smoke size (bf16): the
+# loss within TRAIN_LOSS_RTOL, each gradient leaf's RMS difference within
+# TRAIN_RMS of its RMS and its largest within TRAIN_MAX of its largest
+# magnitude -- the CPU tests' bounds for the port against the JAX package
+# (largest seen there 1.5e-4, 0.037, 0.064).  The card against itself
+# (microbatches=2 against the mean of its half-batch gradients, remat
+# against none) within TRAIN_SAME of each leaf's largest magnitude: the
+# same kernels, but the embedding's backward adds with atomics.  After one
+# AdamW step from zero moments every update is about +-lr, so the two
+# devices' parameters agree within TRAIN_STEP_LR x lr.
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_RMS, TRAIN_MAX = 2.0 ** -4, 2.0 ** -3
+TRAIN_SAME = 1e-4
+TRAIN_STEP_LR = 2.5
+# the restart check: the monitor's model (examples/train_topo_monitor_torch
+# .py), its data (batch 8 x 64) and schedule, 10 steps against 5 + resume
+TOPO_LM = dict(name="topo-lm", family="dense", n_layers=4, d_model=128,
+               n_heads=4, n_kv=2, d_ff=512, vocab=2048)
+# full width and depth: one chip's share (B 1) of the repo's train_4k shape
+# (seq 4096, global batch 256 over a 16 x 16 mesh), 4 AdamW steps with
+# remat on one fixed batch; the loss must fall
+TRAIN_FULL = ("h2o-danube-3-4b", "mamba2-2.7b")
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 1, 4096, 4
+# directional derivative at step 0 in f32 compute: <g, d> against the
+# four-point central difference (8 (L(h) - L(-h)) - (L(2h) - L(-2h))) /
+# 12 h along a seeded direction d (N(0, 1) entries times 0.02, the init
+# scale), L(s) the loss at p + s d.  Their difference is held to
+# TRAIN_DIRDERIV_RTOL of 0.02 |g|, the spread of <g, d> over random
+# directions (a d with <g, d> near 0 must not fail a sound gradient).  The
+# two-point difference at h = 1e-2 missed by 0.9 % (h2o-danube-3-4b) and
+# over 1 % (mamba2-2.7b) of that spread on the card, its h^2 curvature
+# term; the four-point one cancels it, and its rounding (one f32 ulp of
+# the loss, ~1e-6, times 1.5 / h) is about 1e-4 here.
+TRAIN_DIRDERIV_H = 1e-2
+TRAIN_DIRDERIV_RTOL = 1e-2
+TRAIN_MONITOR_N = 16
+
+
+def _train_leaf_err(got, want, what, bf16):
+    """(largest RMS-relative, largest max-relative) difference over the
+    leaves of two gradient trees; raises past the tolerance (TRAIN_RMS and
+    TRAIN_MAX if ``bf16``, else TRAIN_SAME) or on a value not finite."""
+    import torch
+    from repro_torch.train.pytree import tree_leaves
+    rms_err = max_err = 0.0
+    for i, (a, b) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        a, b = a.float().cpu(), b.float().cpu()
+        d = (a - b).abs()
+        top = max(float(b.abs().max()), 1e-30)
+        rms = max(float(b.pow(2).mean().sqrt()), 1e-30)
+        r, m = float(d.pow(2).mean().sqrt()) / rms, float(d.max()) / top
+        rms_err, max_err = max(rms_err, r), max(max_err, m)
+        bad = (r > TRAIN_RMS or m > TRAIN_MAX) if bf16 else m > TRAIN_SAME
+        if bad or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"[train] {what}: leaf {i} rms {r} max {m}")
+    return rms_err, max_err
+
+
+def train_smoke(arch, dev):
+    """One smoke architecture's train step on ``dev`` against the CPU from
+    one seeded parameter tree: the gradient (bf16 tolerance), the card's
+    microbatches=2 and remat against its own plain gradient, then one
+    ``make_train_step`` on each device."""
+    import zlib
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, host_batch_at
+    from repro_torch.models import transformer as T
+    from repro_torch.models.convert import params_from_jax, params_to_numpy
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.pytree import tree_leaves, tree_map
+    cfg = smoke_config(arch)
+    cpu = T.init_params(cfg, SEED, device="cpu")
+    card = params_from_jax(cfg, params_to_numpy(cpu), device=dev)
+    batch = {k: torch.from_numpy(v) for k, v in host_batch_at(
+        DataConfig(cfg.vocab, 2, 16, seed=SEED), 0).items()}
+    fe = _lm_smoke_inputs(cfg, np.random.default_rng(
+        zlib.crc32(arch.encode())))[2]
+    if fe is not None:
+        batch["frontend"] = fe.float()
+    plain = TS.StepConfig(remat=False)
+
+    def grads(params, d, sc=plain, b=batch):
+        return TS.loss_and_grads(cfg, sc, params,
+                                 {k: v.to(d) for k, v in b.items()})
+
+    out = {}
+    lc, _, gc = grads(cpu, "cpu")
+    lg, _, gg = grads(card, dev)
+    out["loss"] = float(lg)
+    out["loss_vs_cpu"] = abs(float(lg) - float(lc)) / abs(float(lc))
+    if not out["loss_vs_cpu"] <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"[train] {arch}: loss {float(lg)} vs "
+                             f"{float(lc)}")
+    out["grad_rms_vs_cpu"], out["grad_max_vs_cpu"] = _train_leaf_err(
+        gg, gc, f"{arch} card vs CPU", True)
+    _, _, g2 = grads(card, dev, TS.StepConfig(microbatches=2, remat=False))
+    halves = [grads(card, dev, b={k: v[i:i + 1] for k, v in batch.items()})
+              [2] for i in range(2)]
+    mean = tree_map(lambda a, b: (a + b) / 2, *halves)
+    out["microbatch_vs_halves"] = _train_leaf_err(
+        g2, mean, f"{arch} microbatches=2 vs halves", False)[1]
+    if cfg.moe is None:     # MoE capacity and aux depend on the tokens routed
+        out["microbatch_vs_full_rms"] = _train_leaf_err(
+            g2, gg, f"{arch} microbatches=2 vs 1", True)[0]
+    _, _, gr = grads(card, dev, TS.StepConfig(remat=True))
+    out["remat_vs_plain"] = _train_leaf_err(gr, gg, f"{arch} remat", False)[1]
+    del gc, gg, g2, gr, halves, mean
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=1)
+    step = TS.make_train_step(cfg, opt_cfg, plain)
+    metrics = {}
+    for name, p, d in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        _, _, metrics[name] = step(p, init_opt_state(p),
+                                   {k: v.to(d) for k, v in batch.items()})
+    for k, tol in (("loss", TRAIN_LOSS_RTOL), ("gnorm", TRAIN_RMS)):
+        a, b = float(metrics["card"][k]), float(metrics["cpu"][k])
+        if not abs(a - b) <= tol * abs(b):
+            raise AssertionError(f"[train] {arch} step {k}: {a} vs {b}")
+    out["step_param_diff_over_lr"] = max(
+        float((a.detach().cpu() - b.detach()).abs().max())
+        for a, b in zip(tree_leaves(card), tree_leaves(cpu))) / opt_cfg.lr
+    if not out["step_param_diff_over_lr"] <= TRAIN_STEP_LR:
+        raise AssertionError(f"[train] {arch}: parameters after one step "
+                             f"{out['step_param_diff_over_lr']} lr apart")
+    return out
+
+
+def _train_equal(a, b, what):
+    """Every leaf of two trees equal bit for bit (both moved to the CPU)."""
+    import torch
+    from repro_torch.train.pytree import tree_leaves
+    la, lb = tree_leaves(a), tree_leaves(b)
+    bad = [i for i, (x, y) in enumerate(zip(la, lb))
+           if not torch.equal(x.detach().cpu(), y.detach().cpu())]
+    if bad or len(la) != len(lb):
+        raise AssertionError(f"[train] {what}: leaves {bad} differ")
+    return len(la)
+
+
+def train_restart(dev, tmp):
+    """The reference's fault-tolerance guarantee on the card, under
+    deterministic algorithms: 10 steps of ``run`` against 5, a simulated
+    crash and a resume to 10 -- every parameter and moment bit for bit --
+    then a checkpoint of the card's state read back onto the CPU.  Returns
+    (config, the trained parameters, the record)."""
+    import os
+    import torch
+    from repro_torch.launch.train import RunConfig, run
+    from repro_torch.models.config import ModelConfig
+    from repro_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.pytree import tree_leaves
+    cfg = ModelConfig(**TOPO_LM)
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=10, total_steps=10)
+    rec = {}
+    ck = os.path.join(tmp, "ck")
+
+    def go(steps, ckpt_dir=None):
+        return run(cfg, RunConfig(steps=steps, ckpt_every=5,
+                                  ckpt_dir=ckpt_dir, seed=SEED), opt_cfg,
+                   verbose=False, device=dev)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        t0 = time.perf_counter()
+        p_full, o_full, l_full = go(10)
+        rec["ten_steps_s"] = time.perf_counter() - t0
+        _, _, l_half = go(5, ck)
+        p_res, o_res, l_res = go(10, ck)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if l_half + l_res != l_full:
+        raise AssertionError(f"[train] restart losses {l_half + l_res} vs "
+                             f"{l_full}")
+    rec["leaves_equal"] = _train_equal(p_full, p_res, "restart params") \
+        + _train_equal(o_full.m, o_res.m, "restart m") \
+        + _train_equal(o_full.v, o_res.v, "restart v")
+    rec["losses"] = [round(x, 4) for x in l_full]
+    # control: the same 10 steps twice without deterministic algorithms
+    p_a, _, _ = go(10)
+    p_b, _, _ = go(10)
+    rec["nondeterministic_leaves"] = sum(
+        not torch.equal(a, b) for a, b in zip(tree_leaves(p_a),
+                                              tree_leaves(p_b)))
+    del p_a, p_b
+    save_checkpoint(os.path.join(tmp, "card"), 10, p_res, o_res)
+    step, p_cpu, o_cpu = load_checkpoint(os.path.join(tmp, "card"), p_res,
+                                         o_res, device="cpu")
+    rec["checkpoint_to_cpu_leaves_equal"] = _train_equal(
+        p_cpu, p_res, "checkpoint params") + _train_equal(
+        o_cpu.m, o_res.m, "checkpoint m") + _train_equal(
+        o_cpu.v, o_res.v, "checkpoint v")
+    if step != 10 or int(o_cpu.step) != 10:
+        raise AssertionError(f"[train] checkpoint step {step}")
+    return cfg, p_res, rec
+
+
+def _train_dirderiv(cfg, params, batch, dev):
+    """<g, d> against the four-point central difference of the loss along
+    a seeded direction d, in f32 compute, at ``params`` (step 0).  d is
+    drawn leaf by leaf from a generator seeded per leaf, so it is made
+    again where needed and never held whole; the perturbed parameters
+    live in one buffer, rewritten for each of the four points."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.pytree import tree_leaves, tree_map
+    h = TRAIN_DIRDERIV_H
+    sc = TS.StepConfig(remat=True)
+
+    def direction(i, leaf):
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1 + i)
+        return torch.randn(leaf.shape, generator=gen, device=dev) * 0.02
+
+    t0 = time.perf_counter()
+    with _compute_dtype(L, torch.float32):
+        loss, _, grads = TS.loss_and_grads(cfg, sc, params, batch)
+        gnorm = float(global_norm(grads))
+        gd = 0.0
+        for i, (g, p) in enumerate(zip(tree_leaves(grads),
+                                       tree_leaves(params))):
+            gd += float((g * direction(i, p)).sum(dtype=torch.float64))
+        del grads
+        with torch.no_grad():
+            pert = tree_map(torch.empty_like, params)
+            at = {}
+            for s in (1, -1, 2, -2):
+                for i, (q, p) in enumerate(zip(tree_leaves(pert),
+                                               tree_leaves(params))):
+                    torch.add(p, direction(i, p), alpha=s * h, out=q)
+                at[s] = float(TS.loss_fn(cfg, sc, pert, batch["tokens"],
+                                         batch["labels"])[0])
+        del pert
+    fd = (8 * (at[1] - at[-1]) - (at[2] - at[-2])) / (12 * h)
+    spread = 0.02 * gnorm
+    rec = dict(dirderiv_loss=float(loss), dirderiv_gnorm=gnorm,
+               dirderiv_grad=gd, dirderiv_central=fd,
+               dirderiv_two_point=(at[1] - at[-1]) / (2 * h),
+               dirderiv_err_over_spread=abs(fd - gd) / max(spread, 1e-30),
+               dirderiv_s=time.perf_counter() - t0)
+    if not rec["dirderiv_err_over_spread"] <= TRAIN_DIRDERIV_RTOL:
+        raise AssertionError(f"[train] {cfg.name}: directional derivative "
+                             f"{gd} vs central difference {fd}")
+    return rec
+
+
+def train_full(name, dev, smi, cfg=None, seq=TRAIN_S):
+    """One model trained at full published width and depth on ``dev``:
+    seeded parameters made on the device, the directional-derivative
+    check at step 0, then TRAIN_STEPS AdamW steps with remat on one fixed
+    batch of TRAIN_B x ``seq`` tokens (the loss must fall), timed, with
+    the device's busy share over one more profiled step.  Frees the model
+    before it returns."""
+    import math
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import OptConfig, init_opt_state
+    from repro_torch.train.pytree import tree_leaves
+    sync = torch.cuda.synchronize
+    cfg = cfg or get_config(name)
+    n_params = sum(math.prod(x.shape) for x in
+                   tree_leaves(T.abstract_params(cfg)))
+    rec = dict(model=name, layers=cfg.n_layers, d_model=cfg.d_model,
+               batch=TRAIN_B, seq=seq, params=n_params,
+               # f32 parameters, gradients, m and v
+               static_gb=16 * n_params / 1e9)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, SEED, device=dev)
+    sync()
+    rec["init_s"] = time.perf_counter() - t0
+    batch = batch_at(DataConfig(cfg.vocab, TRAIN_B, seq, seed=SEED), 0,
+                     device=dev)
+    rec.update(_train_dirderiv(cfg, params, batch, dev))
+    opt = init_opt_state(params)
+    step_fn = TS.make_train_step(cfg, OptConfig(lr=1e-4, warmup_steps=1),
+                                 TS.StepConfig(remat=True))
+    losses, secs = [], []
+    for _ in range(TRAIN_STEPS):
+        sync()
+        t0 = time.perf_counter()
+        params, opt, m = step_fn(params, opt, batch)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    rec.update(losses=losses, gnorm=float(m["gnorm"]),
+               first_step_s=secs[0], step_s=sum(secs[1:]) / (len(secs) - 1))
+    rec["tokens_per_s"] = TRAIN_B * seq / rec["step_s"]
+    (rec["profiled_step_ms"], rec["device_ms_per_step"],
+     rec["device_busy_share"]) = _lm_device_busy(
+        lambda: step_fn(params, opt, batch), 1)
+    # the same device time over an unprofiled step
+    if rec["device_ms_per_step"] is not None:
+        rec["device_share_of_step"] = rec["device_ms_per_step"] \
+            / (rec["step_s"] * 1e3)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params, opt, m, step_fn
+    torch.cuda.empty_cache()
+    log("train", **rec, smi=smi)
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"[train] {name}: the loss did not fall: "
+                             f"{losses}")
+    return rec
+
+
+def train_timing(dev, smi, flash=(1, 4096, 32, 8, 120, 4096),
+                 ssd=(1, 4096, 80, 64, 128, 256), reps=3):
+    """The backward passes of the reference's jnp device programs, ported
+    as torch ops under autograd, at the full-width training shapes, with
+    CUDA events (forward + backward less the forward, both with autograd
+    recording), each beside its bound: ``_flash_sdpa`` at
+    h2o-danube-3-4b's attention (S 4096, 32 / 8 heads, hd 120, causal,
+    window 4096; its gradient held against ``_sdpa``'s, with
+    ``scaled_dot_product_attention``'s backward as the library
+    yardstick) and ``ssd_chunked`` at mamba2-2.7b's."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import layers as L
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    bf16 = torch.bfloat16
+    out = {}
+
+    def rnd(shape, dtype=bf16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype) \
+            .requires_grad_()
+
+    def fwd_bwd(fn, inputs, dout):
+        return lambda: torch.autograd.grad(fn(), inputs, dout)
+
+    B, S, H, Kv, hd, window = flash
+    q, k, v = rnd((B, S, H, hd)), rnd((B, S, Kv, hd)), rnd((B, S, Kv, hd))
+    do = torch.randn((B, S, H, hd), generator=gen, device=dev).to(bf16)
+
+    def flash_fn():
+        return L._flash_sdpa(q, k, v, True, window)
+    got = fwd_bwd(flash_fn, (q, k, v), do)()
+    pos = torch.arange(S, device=dev)
+    mask = ((pos[:, None] >= pos[None, :])
+            & (pos[:, None] - pos[None, :] < window))[None, None, None]
+    want = torch.autograd.grad(L._sdpa(q, k, v, mask), (q, k, v), do)
+    del mask
+    err = max(float((a.float() - b.float()).abs().max()) for a, b in
+              zip(got, want))
+    tol = LM_LEAF_TOL * max(float(b.float().abs().max()) for b in want)
+    del want, got
+    if not err <= tol:
+        raise AssertionError(f"[train] _flash_sdpa backward vs _sdpa's: "
+                             f"{err} > {tol}")
+    fwd = cuda_ms(flash_fn, reps)
+    both = cuda_ms(fwd_bwd(flash_fn, (q, k, v), do), reps)
+    rep = H // Kv
+    qh = q.detach().transpose(1, 2).requires_grad_()
+    kh = k.detach().repeat_interleave(rep, 2).transpose(1, 2) \
+        .requires_grad_()
+    vh = v.detach().repeat_interleave(rep, 2).transpose(1, 2) \
+        .requires_grad_()
+    doh = do.transpose(1, 2)
+
+    def lib_fn():
+        return F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+    lib = cuda_ms(fwd_bwd(lib_fn, (qh, kh, vh), doh), reps) \
+        - cuda_ms(lib_fn, reps)
+    pairs = sum(min(i + 1, window) for i in range(S))   # causal, windowed
+    flops = 8 * B * H * hd * pairs           # dV, dP, dQ, dK: 2x forward
+    nbytes = 2 * 2 * (2 * B * S * H * hd + 2 * B * S * Kv * hd)
+    out["_flash_sdpa"] = _lm_bound_line(
+        "_flash_sdpa_backward", dict(B=B, S=S, H=H, Kv=Kv, hd=hd,
+                                     causal=True, window=window),
+        both - fwd, flops, H100_BF16_FLOPS, nbytes, smi, phase="train",
+        forward_ms=fwd, max_abs_err=err, tolerance=tol,
+        library="scaled_dot_product_attention", library_ms=lib)
+    del q, k, v, do, qh, kh, vh, doh
+
+    b, l, h, p, n, chunk = ssd
+    x = rnd((b, l, h, p))
+    a = (-(torch.rand((b, l, h), generator=gen, device=dev) * 0.49
+           + 0.01)).requires_grad_()
+    Bm, Cm = rnd((b, l, n)), rnd((b, l, n))
+    dy = torch.randn((b, l, h, p), generator=gen, device=dev)
+
+    def ssd_fn():
+        return L.ssd_chunked(x, a, Bm, Cm, chunk)
+    grads = fwd_bwd(ssd_fn, (x, a, Bm, Cm), dy)()
+    if not all(bool(torch.isfinite(g).all()) for g in grads):
+        raise AssertionError("[train] ssd_chunked backward: not finite")
+    del grads
+    fwd = cuda_ms(ssd_fn, reps)
+    both = cuda_ms(fwd_bwd(ssd_fn, (x, a, Bm, Cm), dy), reps)
+    c = l // chunk
+    flops = 4 * (c * chunk * chunk * n + c * h * chunk * chunk * p
+                 + 2 * c * h * chunk * p * n + h * (c + 1) ** 2 * p * n)
+    nbytes = 2 * (x.numel() * 2 + a.numel() * 4 + 2 * Bm.numel() * 2) \
+        + dy.numel() * 4
+    out["ssd_chunked"] = _lm_bound_line(
+        "ssd_chunked_backward", dict(b=b, l=l, h=h, p=p, n=n, chunk=chunk),
+        both - fwd, flops, H100_F32_FLOPS, nbytes, smi, phase="train",
+        forward_ms=fwd, library=None, library_ms=None)
+    return out
+
+
+def train_monitor(dev, cfg, params):
+    """The monitor of ``examples/train_topo_monitor_torch.py`` on the card:
+    ``loss_landscape_pd`` at n = TRAIN_MONITOR_N through a ``TopoService``
+    on the pipeline's default back-end (the fused kernel), on the restart
+    model at its seeded start (the batch of step 0) and trained (the
+    batch of step 9).  Each diagram's re-check is a cache hit that
+    launches nothing; its arrays (pairs in value and order space,
+    essential classes) equal the ``np`` back-end's on the same sampled
+    values.  Returns (record, fused launches)."""
+    import importlib.util
+    import numpy as np
+    import torch
+    from repro_torch.cache import DiagramCache
+    from repro_torch.core.grid import Grid
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import lower_star as LS
+    from repro_torch.kernels import ref
+    from repro_torch.models import transformer as T
+    from repro_torch.pipeline import PersistencePipeline
+    from repro_torch.serve import TopoService
+    from repro_torch.train.train_step import StepConfig
+    spec = importlib.util.spec_from_file_location(
+        "train_topo_monitor_torch",
+        os.path.join(HERE, "examples", "train_topo_monitor_torch.py"))
+    M = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(M)
+    n = TRAIN_MONITOR_N
+    g = Grid.of(n, n)
+    cases = (("start", T.init_params(cfg, SEED, device=dev), 0),
+             ("trained", params, 9))
+    rec = {}
+    _zero_counts()
+    with TopoService(cache=DiagramCache(max_bytes=32 << 20),
+                     max_wait_s=0.0) as svc:
+        for name, p, step in cases:
+            batch = batch_at(DataConfig(cfg.vocab, 8, 64), step, device=dev)
+            t0 = time.perf_counter()
+            vals, d0 = M.loss_landscape_pd(cfg, p, batch,
+                                           StepConfig(remat=False), svc, n=n)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            before = dict(LS.LAUNCHES)
+            again = svc.diagram(vals.reshape(-1), grid=g)     # a cache hit
+            if dict(LS.LAUNCHES) != before:
+                raise AssertionError(f"[train] monitor {name}: the re-check "
+                                     f"launched {dict(LS.LAUNCHES)}")
+            want = PersistencePipeline("np", sandwich_backend="np",
+                                       device="cpu").run(vals.reshape(-1),
+                                                         grid=g)
+            got, exp = again.arrays(), want.arrays()
+            if sorted(got) != sorted(exp) or any(
+                    not np.array_equal(got[k], exp[k],
+                                       equal_nan=exp[k].dtype.kind == "f")
+                    for k in exp):
+                raise AssertionError(f"[train] monitor {name}: the diagram "
+                                     f"differs from the np back-end's")
+            np_d0 = want.pairs(0, min_persistence=0)
+            if not np.array_equal(d0, np_d0[np_d0[:, 0] != np_d0[:, 1]]):
+                raise AssertionError(f"[train] monitor {name}: D0 pairs "
+                                     f"differ from the np back-end's")
+            rec[name] = dict(landscape_s=round(secs, 3), d0_pairs=len(d0),
+                             d1_pairs=len(want.pairs(1, min_persistence=0)),
+                             essential_d0=len(want.essential(0)),
+                             loss_min=float(vals.min()),
+                             loss_max=float(vals.max()))
+        hits = svc.stats.as_dict()["cache_hits"]
+    launches = dict(LS.LAUNCHES)
+    plain = ref.CUDA_CALLS["lower_star_gradient_torch"]
+    if launches != {"fused": len(cases), "prepass": 0, "fused_halo": 0} \
+            or plain or hits != len(cases):
+        raise AssertionError(f"[train] monitor launches {launches}, plain "
+                             f"{plain}, cache hits {hits}")
+    rec.update(n=n, launches=launches, plain=plain, cache_hits=hits)
+    return rec, launches["fused"]
+
+
+def phase_train(dev="cuda", archs=None, full=TRAIN_FULL, full_cfgs=None,
+                timing=None, seq=TRAIN_S):
+    """[train]: the ten smoke architectures' train steps on the card
+    against the CPU, the restart bit for bit, two models trained at full
+    width and depth, the backward passes timed beside their bounds, and the
+    topology monitor through the fused kernel.  Returns the monitor's
+    fused launches."""
+    import tempfile
+    from repro_torch.configs import ARCHS
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    for arch in archs or sorted(ARCHS):
+        t0 = time.perf_counter()
+        r = train_smoke(arch, dev)
+        log("train", smoke=arch, seconds=round(time.perf_counter() - t0, 3),
+            **r)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cfg, params, r = train_restart(dev, tmp)
+        log("train", restart=cfg.name, seconds=round(
+            time.perf_counter() - t0, 3), **r)
+    r, monitor_launches = train_monitor(dev, cfg, params)
+    log("train", monitor=cfg.name, **r, smi=smi)
+    del params
+    for name in full:
+        train_full(name, dev, smi, cfg=(full_cfgs or {}).get(name), seq=seq)
+    train_timing(dev, smi, **(timing or {}))
+    log("train", seconds=round(time.perf_counter() - t_phase, 3), smi=smi)
+    return monitor_launches
 
 
 def phase_timing(isabel_256, report, plain=True):
@@ -2370,6 +2917,9 @@ def main(argv):
               "checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.join(root, "src"))
+    # [train]'s restart check runs under deterministic algorithms, which
+    # need cuBLAS's workspace fixed before CUDA initialises
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; this smoke test runs on a GPU",
@@ -2397,6 +2947,7 @@ def main(argv):
     phase_cpu()
     oracle_launches = phase_oracle()
     phase_lm()
+    monitor_launches = phase_train()
     rec = phase_timing(isabel, report)
     kernels = []
     for key, src, line in (("fused", "fused.cu", 255),
@@ -2407,7 +2958,8 @@ def main(argv):
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": f"src/repro/kernels/lower_star.py:{line}",
             "launches": launches[key] + dist_launches[key]
-            + oracle_launches[key],
+            + oracle_launches[key]
+            + (monitor_launches if key == "fused" else 0),
             "max_abs_err": max_err,
             "ms": r["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

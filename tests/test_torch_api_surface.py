@@ -2,8 +2,10 @@
 ``repro_torch.{pipeline, serve, approx, obs, cache}`` held against the
 reference's snapshot ``tests/data/api_surface.json``, and those of the LM
 substrate (``repro_torch.models.{config, layers, transformer}``,
-``repro_torch.configs`` and its registry) against the reference's modules
-described live, both under the ``repro.`` -> ``repro_torch.`` renaming,
+``repro_torch.configs`` and its registry, ``repro_torch.data.pipeline``,
+``repro_torch.train.{optimizer, train_step, checkpoint, compression}`` and
+``repro_torch.launch.train``) against the reference's modules described
+live, both under the ``repro.`` -> ``repro_torch.`` renaming,
 with the reference's own ``describe_module``.  Every difference must be
 one of ``DOCUMENTED`` (each with its reason), and every documented
 difference must still be one, so the list cannot go stale."""
@@ -79,13 +81,54 @@ DOCUMENTED = {
                                         "torch.Generator, device= (cuda "
                                         "unless named); returns a "
                                         "ParamTree",
+    "data.pipeline.batch_at()": "device= (cuda unless named): int32 "
+                                "tensors on it",
+    "train.optimizer.Dict": "a typing name the reference imports and does "
+                            "not use",
+    "train.optimizer.OptState()": "step a torch.Tensor (0-d int32, on the "
+                                  "host) in the annotation",
+    "train.train_step.Mesh": "a jax.sharding name the reference imports "
+                             "and does not use",
+    "train.train_step.NamedSharding": "a jax.sharding name the reference "
+                                      "imports and does not use",
+    "train.train_step.P": "a jax.sharding name the reference imports and "
+                          "does not use",
+    "train.train_step.Optional": "a typing name the reference imports and "
+                                 "does not use",
+    "train.train_step.OptState": "imported by the reference, unused there",
+    "train.train_step.init_opt_state": "imported by the reference, unused "
+                                       "there",
+    "train.train_step.loss_and_grads": "the gradient of the train step (the "
+                                       "reference's value_and_grad inside "
+                                       "make_train_step), public for the "
+                                       "checks",
+    "train.checkpoint.Any": "a typing name of the reference's shardings "
+                            "annotation",
+    "train.checkpoint.Tuple": "a typing name of the reference's shardings "
+                              "annotation",
+    "train.checkpoint.load_checkpoint()": "device= (cuda unless named) in "
+                                          "place of shardings: the "
+                                          "single-card re-placement",
+    "train.compression.Tuple": "a typing name the reference imports and "
+                               "does not use",
+    "train.compression.allreduce_compressed()": "group= (a torch."
+                                                "distributed process group, "
+                                                "the default if None) in "
+                                                "place of axis_name",
+    "launch.train.batch_at()": "imported from data.pipeline: device=",
+    "launch.train.load_checkpoint()": "imported from train.checkpoint: "
+                                      "device=",
+    "launch.train.run()": "device= (cuda unless named)",
 }
 
 # the LM substrate's modules, held against the reference's live
 # description (they are not in the snapshot)
 LIVE_MODULES = ("repro.models.config", "repro.models.layers",
                 "repro.models.transformer", "repro.configs",
-                "repro.configs.registry")
+                "repro.configs.registry", "repro.data.pipeline",
+                "repro.train.optimizer", "repro.train.train_step",
+                "repro.train.checkpoint", "repro.train.compression",
+                "repro.launch.train")
 
 
 def _renamed(x):
