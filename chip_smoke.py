@@ -173,7 +173,28 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               counted (zeroed just before, read just after) and its
               re-check a cache hit that launches nothing.  Tolerances
               are stated beside TRAIN_LOSS_RTOL.
-12. timing  — CUDA-event times of ``fused`` and ``prepass`` at 256^3
+12. plan    — multi-device planning (``repro_torch.launch.{mesh,
+              roofline, dryrun}``, ``repro_torch.train.sharding``): the
+              planner on this host for every architecture at
+              ``train_4k`` on the (data=16, model=16) mesh and the DDMS
+              fields (``paper_6b``, ``strong_512``) on both field meshes,
+              one line per cell (per-device bytes, the three roofline
+              terms on the H100 model, the dominant one, the useful
+              ratio); [train]'s two full-width steps planned at mesh (1,
+              1): static bytes equal to the card's to the byte, the
+              planned peak within PLAN_PEAK_RTOL of the steps'
+              ``max_memory_allocated`` and its part above the static
+              bytes within PLAN_DYNAMIC_RTOL, the counted FLOPs beside the
+              profiler's device ms per step; a smoke step counted on fake
+              CUDA and CPU tensors (equal FLOPs); the DDMS plan of
+              [dist]'s ``run_front`` beside its peak and its tet passes'
+              seconds; and one block of the paper's 2048 x 1920 x 1536
+              field in 256 blocks (6 owned planes and 2 ghosts, a
+              generated stand-in) through the halo entry's int32
+              instantiation, its launch counted, its rows equal to the
+              plain version's (timed) and to the fused in-memory
+              entry's, timed beside its bound.
+13. timing  — CUDA-event times of ``fused`` and ``prepass`` at 256^3
               (``isabel``, ``random``) and 512^3 (``random``) and of the
               plain version at 256^3, each beside its bound (the longer of
               its bytes over 3.35 TB/s and the integer operations the
@@ -188,7 +209,7 @@ The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script prints no result and exits non-zero.
 
-``--timing-of DIR`` runs only phase 12 (without the plain version) on the
+``--timing-of DIR`` runs only phase 13 (without the plain version) on the
 port in another tree DIR, for instance the parent commit unpacked with
 ``git archive`` into a git-ignored directory; it prints no result lines.
 To compare two trees, time them in turns in one call on one card (A, B,
@@ -203,10 +224,6 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (data sheet)
-# the guide's 67 TFLOP/s non-tensor fp32 rate; an H100 SM issues int32 on
-# 64 of its 128 lanes, so integer work peaks at half of it
-INT_OPS_PER_S = 67e12 / 2
 SEED = 0
 
 
@@ -226,13 +243,13 @@ def nvidia_smi_line():
 # operation and byte counts of one lower-star pairing launch
 # --------------------------------------------------------------------------
 
-def io_bytes(n, rank_bytes, prepass, ghosts=0):
-    """Bytes a pairing launch must move: each input read once (ranks,
-    plus the (n, 27) tensor for the prepass kernel, plus ``ghosts`` ghost
-    keys for the halo entry), each output written once (74 + 74 + 1 + 4
-    B/vertex)."""
-    return (n * rank_bytes * (28 if prepass else 1) + ghosts * rank_bytes
-            + n * (74 + 74 + 1 + 4))
+def _roofline():
+    """The port's hardware model (``repro_torch.launch.roofline``): the
+    H100 rates every bound here uses (HBM_BYTES_PER_S, INT_OPS_PER_S,
+    H100_BF16_FLOPS, H100_F32_FLOPS) and ``io_bytes``, the bytes a
+    pairing launch must move, which the planner uses too."""
+    from repro_torch.launch import roofline
+    return roofline
 
 
 def _warp_spread(x):
@@ -304,8 +321,9 @@ def pairing_work(status, vstat, chunk=1 << 22):
 def bound_ms(work):
     """The least time for ``work``: its bytes over the memory rate or the
     operations it needs over the integer rate, whichever is longer."""
-    t_b = work["bytes"] / HBM_BYTES_PER_S * 1e3
-    t_o = work["ops"] / INT_OPS_PER_S * 1e3
+    RL = _roofline()
+    t_b = work["bytes"] / RL.HBM_BYTES_PER_S * 1e3
+    t_o = work["ops"] / RL.INT_OPS_PER_S * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -885,6 +903,7 @@ def _run_front_logged(what, dims, f, n_blocks, **kw):
     cfg, out = run_front(dims, f, n_blocks, stats=stats, **kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
+    stats["peak_device_bytes"] = torch.cuda.max_memory_allocated()
     log("dist", run_front=what, dims=dims, blocks=n_blocks,
         seconds=round(secs, 4),
         steps={k: round(v, 4) for k, v in stats["steps"].items()},
@@ -893,7 +912,7 @@ def _run_front_logged(what, dims, f, n_blocks, **kw):
             "sort_percap"), sort_bucket_peak=stats.get("sort_bucket_peak"),
         buffers=stats["buffers"], crit_capacity=cfg.crit_capacity,
         crit_peak=int(out["crit_peak"]),
-        peak_device_bytes=torch.cuda.max_memory_allocated(),
+        peak_device_bytes=stats["peak_device_bytes"],
         smi=nvidia_smi_line())
     return out, stats, secs
 
@@ -910,7 +929,8 @@ def phase_dist(isabel_256, n=256):
     path on ``random`` 32^3 and ``isabel`` 64^3 (the host token D1 bounds
     the size), payloads equal to the sequential runs'.  The launch
     counters are zeroed just before the distributed runs and read just
-    after; returns them."""
+    after; returns them, and the sample-sorted ``run_front``'s stats and
+    seconds (for [plan])."""
     import torch
     from repro_torch.core.grid import Grid
     from repro_torch.distributed.pairing_rounds import pairing_fixpoint
@@ -944,8 +964,8 @@ def phase_dist(isabel_256, n=256):
     # doubled while a bucket overflows (logged), then rank-free keys
     slack = 2.0
     while True:
-        out, stats, _ = _run_front_logged("fused, sample sort", dims, f, nb,
-                                          sort_slack=slack)
+        out, stats, secs = _run_front_logged("fused, sample sort", dims,
+                                             f, nb, sort_slack=slack)
         if not bool(out["overflow"]) or slack >= 64:
             break
         log("dist", overflow_at_slack=slack,
@@ -953,6 +973,7 @@ def phase_dist(isabel_256, n=256):
         slack *= 2
         _zero_counts()
     sort_out = out
+    front = dict(stats, seconds=secs, dims=dims, blocks=nb)
     rf_out, _, _ = _run_front_logged("fused, rank-free", dims, f, nb,
                                      use_sample_sort=False)
     pre = {}
@@ -1001,7 +1022,8 @@ def phase_dist(isabel_256, n=256):
     rows = LS.fused_rows_from_halo_volume(ext, rank_bound=n ** 3)
     work = pairing_work(rows[0], rows[2])
     del rows
-    work["bytes"] = io_bytes(n // nb * plane, 4, False, ghosts=2 * plane)
+    work["bytes"] = _roofline().io_bytes(n // nb * plane, 4, False,
+                                         ghosts=2 * plane)
     ms = cuda_ms(lambda: LS.fused_rows_from_halo_volume(
         ext, rank_bound=n ** 3), reps=5)
     bms, by = bound_ms(work)
@@ -1055,7 +1077,7 @@ def phase_dist(isabel_256, n=256):
     log("dist", seconds=round(time.perf_counter() - t_phase, 3), smi=smi)
     del oracle, oracle_h, f, f_h
     torch.cuda.empty_cache()
-    return launches
+    return launches, front
 
 
 # budget of the dense bottleneck check: an (n x m) float64 distance matrix
@@ -1683,8 +1705,6 @@ LM_BF16_RATIO = 1.5
 # -- the SSM state kept bf16 moves the logits less than bf16 rounding
 # does (0.96x on the card), so only its dtype shows it
 LM_CONTROLS = ("cache_fp8", "act_fp8", "state_bf16")
-H100_BF16_FLOPS = 989e12       # dense tensor-core bf16 (data sheet)
-H100_F32_FLOPS = 67e12         # float32 outside the tensor cores
 
 
 def _lm_leaves(tree, prefix=""):
@@ -2144,6 +2164,7 @@ def lm_timing(dev, smi, flash=(1, 4096, 24, 8, 128), ssd=(1, 4096, 80, 64,
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.models import layers as L
+    RL = _roofline()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     bf16 = torch.bfloat16
     out = {}
@@ -2176,7 +2197,7 @@ def lm_timing(dev, smi, flash=(1, 4096, 24, 8, 128), ssd=(1, 4096, 80, 64,
         nbytes = 2 * (2 * B * S * H * hd + 2 * B * S * Kv * hd)
         out["_flash_sdpa"] = _lm_bound_line(
             "_flash_sdpa", dict(B=B, S=S, H=H, Kv=Kv, hd=hd, causal=True),
-            ms, flops, H100_BF16_FLOPS, nbytes, smi, max_abs_err=err,
+            ms, flops, RL.H100_BF16_FLOPS, nbytes, smi, max_abs_err=err,
             tolerance=tol, library="scaled_dot_product_attention",
             library_ms=lib_ms, library_err=lib_err)
         del q, k, v, qh, kh, vh, lib, got
@@ -2204,7 +2225,7 @@ def lm_timing(dev, smi, flash=(1, 4096, 24, 8, 128), ssd=(1, 4096, 80, 64,
             + got.numel() * 4
         out["ssd_chunked"] = _lm_bound_line(
             "ssd_chunked", dict(b=b, l=l, h=h, p=p, n=n, chunk=chunk), ms,
-            flops, H100_F32_FLOPS, nbytes, smi, max_abs_err=err,
+            flops, RL.H100_F32_FLOPS, nbytes, smi, max_abs_err=err,
             tolerance=tol, library=None, library_ms=None)
         del x, a, Bm, Cm, got
 
@@ -2232,7 +2253,7 @@ def lm_timing(dev, smi, flash=(1, 4096, 24, 8, 128), ssd=(1, 4096, 80, 64,
             "moe", dict(tokens=Bt * St, d=d, experts=E, top_k=mo.top_k,
                         d_expert=fe, kept=kept, capacity=math.ceil(
                             mo.capacity_factor * Bt * St * mo.top_k / E)),
-            ms, flops, H100_BF16_FLOPS, nbytes, smi, max_abs_err=err,
+            ms, flops, RL.H100_BF16_FLOPS, nbytes, smi, max_abs_err=err,
             tolerance=tol, library=None, library_ms=None)
     return out
 
@@ -2240,7 +2261,7 @@ def lm_timing(dev, smi, flash=(1, 4096, 24, 8, 128), ssd=(1, 4096, 80, 64,
 def _lm_bound_line(name, shape, ms, flops, rate, nbytes, smi, phase="lm",
                    **kw):
     t_ops = flops / rate * 1e3
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_bytes = nbytes / _roofline().HBM_BYTES_PER_S * 1e3
     bound, by = (t_ops, "operations") if t_ops >= t_bytes else \
         (t_bytes, "bytes")
     rec = dict(program=name, ms=ms, bound_ms=bound, bound_by=by,
@@ -2493,6 +2514,8 @@ def _train_dirderiv(cfg, params, batch, dev):
     t0 = time.perf_counter()
     with _compute_dtype(L, torch.float32):
         loss, _, grads = TS.loss_and_grads(cfg, sc, params, batch)
+        grad_bytes = sum(g.untyped_storage().nbytes()
+                         for g in tree_leaves(grads))
         gnorm = float(global_norm(grads))
         gd = 0.0
         for i, (g, p) in enumerate(zip(tree_leaves(grads),
@@ -2515,7 +2538,7 @@ def _train_dirderiv(cfg, params, batch, dev):
                dirderiv_grad=gd, dirderiv_central=fd,
                dirderiv_two_point=(at[1] - at[-1]) / (2 * h),
                dirderiv_err_over_spread=abs(fd - gd) / max(spread, 1e-30),
-               dirderiv_s=time.perf_counter() - t0)
+               dirderiv_s=time.perf_counter() - t0, grad_bytes=grad_bytes)
     if not rec["dirderiv_err_over_spread"] <= TRAIN_DIRDERIV_RTOL:
         raise AssertionError(f"[train] {cfg.name}: directional derivative "
                              f"{gd} vs central difference {fd}")
@@ -2555,15 +2578,24 @@ def train_full(name, dev, smi, cfg=None, seq=TRAIN_S):
                      device=dev)
     rec.update(_train_dirderiv(cfg, params, batch, dev))
     opt = init_opt_state(params)
+    # the bytes the card holds for parameters, gradients (the step's
+    # buffers, measured in the derivative check), m and v
+    rec["static_bytes"] = rec.pop("grad_bytes") + sum(
+        x.untyped_storage().nbytes()
+        for tree in (params, opt.m, opt.v) for x in tree_leaves(tree))
     step_fn = TS.make_train_step(cfg, OptConfig(lr=1e-4, warmup_steps=1),
                                  TS.StepConfig(remat=True))
     losses, secs = [], []
+    sync()
+    before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     for _ in range(TRAIN_STEPS):
         sync()
         t0 = time.perf_counter()
         params, opt, m = step_fn(params, opt, batch)
         losses.append(float(m["loss"]))
         secs.append(time.perf_counter() - t0)
+    rec["step_peak_bytes"] = torch.cuda.max_memory_allocated()
     rec.update(losses=losses, gnorm=float(m["gnorm"]),
                first_step_s=secs[0], step_s=sum(secs[1:]) / (len(secs) - 1))
     rec["tokens_per_s"] = TRAIN_B * seq / rec["step_s"]
@@ -2574,7 +2606,7 @@ def train_full(name, dev, smi, cfg=None, seq=TRAIN_S):
     if rec["device_ms_per_step"] is not None:
         rec["device_share_of_step"] = rec["device_ms_per_step"] \
             / (rec["step_s"] * 1e3)
-    rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    rec["peak_gb"] = max(before, torch.cuda.max_memory_allocated()) / 1e9
     del params, opt, m, step_fn
     torch.cuda.empty_cache()
     log("train", **rec, smi=smi)
@@ -2597,6 +2629,7 @@ def train_timing(dev, smi, flash=(1, 4096, 32, 8, 120, 4096),
     import torch
     import torch.nn.functional as F
     from repro_torch.models import layers as L
+    RL = _roofline()
     gen = torch.Generator(device=dev).manual_seed(SEED)
     bf16 = torch.bfloat16
     out = {}
@@ -2647,7 +2680,7 @@ def train_timing(dev, smi, flash=(1, 4096, 32, 8, 120, 4096),
     out["_flash_sdpa"] = _lm_bound_line(
         "_flash_sdpa_backward", dict(B=B, S=S, H=H, Kv=Kv, hd=hd,
                                      causal=True, window=window),
-        both - fwd, flops, H100_BF16_FLOPS, nbytes, smi, phase="train",
+        both - fwd, flops, RL.H100_BF16_FLOPS, nbytes, smi, phase="train",
         forward_ms=fwd, max_abs_err=err, tolerance=tol,
         library="scaled_dot_product_attention", library_ms=lib)
     del q, k, v, do, qh, kh, vh, doh
@@ -2674,7 +2707,7 @@ def train_timing(dev, smi, flash=(1, 4096, 32, 8, 120, 4096),
         + dy.numel() * 4
     out["ssd_chunked"] = _lm_bound_line(
         "ssd_chunked_backward", dict(b=b, l=l, h=h, p=p, n=n, chunk=chunk),
-        both - fwd, flops, H100_F32_FLOPS, nbytes, smi, phase="train",
+        both - fwd, flops, RL.H100_F32_FLOPS, nbytes, smi, phase="train",
         forward_ms=fwd, library=None, library_ms=None)
     return out
 
@@ -2761,7 +2794,7 @@ def phase_train(dev="cuda", archs=None, full=TRAIN_FULL, full_cfgs=None,
     against the CPU, the restart bit for bit, two models trained at full
     width and depth, the backward passes timed beside their bounds, and the
     topology monitor through the fused kernel.  Returns the monitor's
-    fused launches."""
+    fused launches and the full-width records (for [plan])."""
     import tempfile
     from repro_torch.configs import ARCHS
     smi = nvidia_smi_line()
@@ -2779,11 +2812,258 @@ def phase_train(dev="cuda", archs=None, full=TRAIN_FULL, full_cfgs=None,
     r, monitor_launches = train_monitor(dev, cfg, params)
     log("train", monitor=cfg.name, **r, smi=smi)
     del params
-    for name in full:
-        train_full(name, dev, smi, cfg=(full_cfgs or {}).get(name), seq=seq)
+    recs = {name: train_full(name, dev, smi, cfg=(full_cfgs or {}).get(name),
+                             seq=seq)
+            for name in full}
     train_timing(dev, smi, **(timing or {}))
     log("train", seconds=round(time.perf_counter() - t_phase, 3), smi=smi)
-    return monitor_launches
+    return monitor_launches, recs
+
+
+# [plan]: the planned peak of a train step at mesh (1, 1) is held to within
+# PLAN_PEAK_RTOL of what [train] measured on the card (max_memory_allocated
+# over its steps), and its static bytes to the byte.  The paper's field
+# (DDMS_FIELDS["paper_6b"], 2048 x 1920 x 1536) in PLAN_BLOCKS blocks: one
+# block (PLAN_BLOCK: its 6 owned planes and 2 ghosts) goes through the
+# fused kernel's halo entry.  The field is a generated stand-in (the
+# paper's Turbulent Channel Flow data is not in the repository): `wavelet`,
+# whose closed form evaluates those planes of the 6-billion-vertex grid in
+# seconds; the rng-backed fields replay their stream from the grid's start
+# (some 6e9 draws, minutes on one core).
+PLAN_PEAK_RTOL = 0.10
+# Most of that peak is the static bytes, held to the byte above, so the
+# part the counter models (the peak above the static bytes: activations,
+# the step's temporaries, the batch) is gated on its own.  Against an
+# H100 80GB HBM3 at 700 W the plan reads -1.2 % (h2o-danube-3-4b) and
+# -1.0 % (mamba2-2.7b) there; a plan with no dynamic part reads -100 %.
+PLAN_DYNAMIC_RTOL = 0.05
+PLAN_FIELD = "wavelet"
+PLAN_BLOCKS, PLAN_BLOCK = 256, 128
+PLAN_PLAIN_PLANES = 2
+
+
+def _plan_line(rec, **kw):
+    ma = rec["memory_analysis"]
+    log("plan", cell=f"{rec['arch']} x {rec['shape']}", mesh=rec["mesh"],
+        devices=rec["n_devices"],
+        argument_bytes=ma["argument_size_in_bytes"],
+        output_bytes=ma["output_size_in_bytes"],
+        temp_bytes=ma["temp_size_in_bytes"],
+        peak_bytes=rec.get("peak_bytes_per_device"),
+        flops=rec["flops_per_device"], bytes=rec["bytes_per_device"],
+        collective_bytes=sum(v for k, v in rec["collectives"].items()
+                             if k not in ("count", "seconds")),
+        compute_ms=rec["compute_s"] * 1e3, memory_ms=rec["memory_s"] * 1e3,
+        collective_ms=rec["collective_s"] * 1e3, dominant=rec["dominant"],
+        useful_ratio=rec["useful_ratio"], count_s=round(rec["compile_s"], 3),
+        **kw)
+
+
+def plan_cells(archs=None):
+    """The planner on this host for every architecture at ``train_4k`` on
+    the single production mesh (full published widths, full depth by
+    extrapolation) and the DDMS fields on both field meshes; one line per
+    cell.  A cell that errors raises."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import dryrun as D
+    for arch in archs or sorted(ARCHS):
+        rec = D.lower_cell(arch, "train_4k", False)
+        _plan_line(rec, counted_on=rec["counted_on"])
+    for fld in D.DDMS_FIELDS:
+        for multi in (False, True):
+            _plan_line(D.lower_ddms(fld, multi))
+
+
+def plan_vs_train(train_recs, cfgs=None):
+    """The plan of [train]'s full-width steps at mesh (1, 1), B x S and
+    remat as [train] ran them, held to its figures from this run: static
+    bytes equal to the card's, the planned peak within PLAN_PEAK_RTOL of
+    the steps' ``max_memory_allocated`` and its part above the static
+    bytes within PLAN_DYNAMIC_RTOL of the card's; the counted FLOPs
+    beside the profiler's device ms per step (achieved FLOP/s against the
+    bf16 peak).  Then one smoke step counted on fake CUDA and on fake CPU
+    tensors: equal FLOPs (bytes and peak logged)."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train import sharding as SH
+    from repro_torch.train.train_step import StepConfig
+    RL = _roofline()
+    unit = {"data": 1, "model": 1}
+    for name, tr in train_recs.items():
+        cfg = (cfgs or {}).get(name) or get_config(name)
+        shape = ShapeSpec(f"train_{tr['batch']}x{tr['seq']}", tr["seq"],
+                          tr["batch"], "train")
+        p = D.plan_cell(cfg, shape, unit, StepConfig(remat=True),
+                        exact=False)
+        peak, card = p["peak_bytes_per_device"], tr["step_peak_bytes"]
+        static = tr["static_bytes"]
+        rel = (peak - card) / card
+        # the part the counter models: the peak above the static bytes
+        dyn_rel = (peak - card) / (card - static)
+        dev_ms = tr.get("device_ms_per_step")
+        achieved = p["flops_per_device"] / (dev_ms * 1e-3) if dev_ms \
+            else None
+        log("plan", train=name, batch=tr["batch"], seq=tr["seq"],
+            planned_static_bytes=p["static_bytes_per_device"],
+            card_static_bytes=tr["static_bytes"],
+            planned_peak_bytes=peak, card_step_peak_bytes=card,
+            peak_rel_err=round(rel, 4), tolerance=PLAN_PEAK_RTOL,
+            planned_dynamic_bytes=peak - static,
+            card_dynamic_bytes=card - static,
+            dynamic_rel_err=round(dyn_rel, 4),
+            dynamic_tolerance=PLAN_DYNAMIC_RTOL,
+            static_only_rel_err=round((static - card) / card, 4),
+            argument_bytes=p["memory_analysis"]["argument_size_in_bytes"],
+            counted_flops=p["flops_per_device"],
+            model_flops=p["model_flops_per_device"],
+            counted_bytes=p["bytes_per_device"],
+            memory_bound_ms=p["memory_s"] * 1e3,
+            device_ms_per_step=dev_ms,
+            achieved_tflops=achieved and achieved / 1e12,
+            of_peak=achieved and achieved / RL.H100_BF16_FLOPS,
+            counted_on=p["counted_on"], count_s=round(p["compile_s"], 3))
+        if p["static_bytes_per_device"] != tr["static_bytes"]:
+            raise AssertionError(f"[plan] {name}: planned static bytes "
+                                 f"{p['static_bytes_per_device']} != the "
+                                 f"card's {tr['static_bytes']}")
+        if not abs(rel) <= PLAN_PEAK_RTOL:
+            raise AssertionError(f"[plan] {name}: planned peak {peak} vs "
+                                 f"the card's {card} ({rel:+.3f})")
+        if not abs(dyn_rel) <= PLAN_DYNAMIC_RTOL:
+            raise AssertionError(f"[plan] {name}: planned peak above the "
+                                 f"static bytes {peak - static} vs the "
+                                 f"card's {card - static} ({dyn_rel:+.3f})")
+    cfg = smoke_config("minitron-4b")
+    shape = ShapeSpec("smoke", 64, 2, "train")
+    both = {d: D.count_step(cfg, shape, unit, SH.ShardingRules(),
+                            device=d) for d in ("cuda", "cpu")}
+    log("plan", counted_on={d: {k: r[k] for k in ("flops", "bytes", "peak",
+                                                 "ops")}
+                            for d, r in both.items()})
+    if both["cuda"]["flops"] != both["cpu"]["flops"]:
+        raise AssertionError("[plan] FLOPs counted on fake CUDA and CPU "
+                             "tensors differ")
+
+
+def plan_vs_dist(front):
+    """The DDMS plan of [dist]'s ``run_front`` (``isabel`` 256^3, sample
+    sort, the derived triplet capacity, the ring rotations that run
+    took), printed beside what it measured: per-block and total argument,
+    output and temp bytes against its peak, and the tet passes' bytes
+    (successors + tet ring resolution) over HBM against their seconds:
+    their byte bound beside their time."""
+    from repro_torch.launch import dryrun as D
+    RL = _roofline()
+    nb = front["blocks"]
+    rec = D.plan_ddms(front["dims"], {"data": nb}, crit_cap=None,
+                      ring_rotations=None,
+                      rotations=front["ring_rotations"])
+    ma, by = rec["memory_analysis"], rec["bytes_detail"]
+    tet = nb * (by["successors"] + by["resolution_t"])
+    steps = front["steps"]
+    log("plan", ddms="isabel", dims=front["dims"], blocks=nb,
+        rotations=rec["config"]["rotations"],
+        crit_capacity=rec["config"]["crit_capacity"],
+        argument_bytes=nb * ma["argument_size_in_bytes"],
+        output_bytes=nb * ma["output_size_in_bytes"],
+        temp_bytes=nb * ma["temp_size_in_bytes"],
+        planned_peak_bytes=nb * sum(ma.values()),
+        measured_peak_bytes=front["peak_device_bytes"],
+        bytes_by_pass={k: nb * v for k, v in by.items()},
+        tet_pass_bytes=tet,
+        tet_bound_ms=tet / RL.HBM_BYTES_PER_S * 1e3,
+        successors_s=steps.get("successors"),
+        resolution_s=steps.get("resolution"),
+        run_front_s=front["seconds"])
+
+
+def plan_block(smi, dims=(2048, 1920, 1536), n_blocks=PLAN_BLOCKS,
+               block=PLAN_BLOCK, field=PLAN_FIELD):
+    """One block of the paper's field at its per-device size through the
+    halo entry (``ls_fused_halo_i32``): the owned planes and their two
+    ghosts generated with ``make_field_chunk``, ranked by value with ties
+    broken by vertex id (the order of this volume keeps every owned
+    vertex's lower star as the global order would); the launch counted
+    (zeroed just before, read just after); its rows equal to the plain
+    version's on the same volume (run over slabs of PLAN_PLAIN_PLANES
+    owned planes, timed with the clock) and to the fused in-memory
+    entry's on the same volume's owned planes; then timed with CUDA
+    events beside its bound.  Returns (halo launches, record)."""
+    import torch
+    from repro_torch.core.grid import Grid, vertex_order
+    from repro_torch.fields.generators import make_field_chunk
+    from repro_torch.kernels import lower_star as LS
+    from repro_torch.kernels import ops, ref
+    nx, ny, nz = dims
+    nzl = nz // n_blocks
+    z0 = block * nzl
+    plane = nx * ny
+    t0 = time.perf_counter()
+    vol = make_field_chunk(field, dims, SEED, z0 - 1, z0 + nzl + 1)
+    gen_s = time.perf_counter() - t0
+    ranks = vertex_order(torch.from_numpy(vol).cuda()).to(torch.int32) \
+        .reshape(vol.shape)
+    del vol
+    n = ranks.numel()
+    torch.cuda.synchronize()
+    _zero_counts()
+    rows = LS.fused_rows_from_halo_volume(ranks, rank_bound=n)
+    torch.cuda.synchronize()
+    launches = dict(LS.LAUNCHES)
+    plain = ref.CUDA_CALLS["lower_star_gradient_torch"]
+    if launches != {"fused": 0, "prepass": 0, "fused_halo": 1} or plain:
+        raise AssertionError(f"[plan] block launches {launches} (plain "
+                             f"{plain}); want the halo entry once")
+    # the plain version on the same volume, PLAN_PLAIN_PLANES owned planes
+    # (with their two ghosts) at a time, its launches not counted
+    t0 = time.perf_counter()
+    parts = [ops.lower_star_rows_halo(
+        ranks[z - 1: min(z + PLAN_PLAIN_PLANES, nzl + 1) + 1], "torch")
+        for z in range(1, nzl + 1, PLAN_PLAIN_PLANES)]
+    plain_rows = tuple(torch.cat(p) for p in zip(*parts))
+    del parts
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    err = _rows_equal(rows, plain_rows)
+    del plain_rows
+    whole = LS.fused_lower_star_gradient(Grid.of(nx, ny, nzl + 2),
+                                         ranks.reshape(-1))
+    _rows_equal(rows, tuple(t[plane: plane * (nzl + 1)] for t in whole),
+                "the fused entry")
+    del whole
+    work = pairing_work(rows[0], rows[2])
+    del rows
+    work["bytes"] = _roofline().io_bytes(nzl * plane, 4, False,
+                                         ghosts=2 * plane)
+    ms = cuda_ms(lambda: LS.fused_rows_from_halo_volume(ranks, rank_bound=n),
+                 reps=3)
+    bms, by = bound_ms(work)
+    rec = dict(field=field, dims=dims, blocks=n_blocks, block=block,
+               planes=(z0 - 1, z0 + nzl + 1), vertices=n,
+               owned=nzl * plane, generate_s=round(gen_s, 3), ms=ms,
+               plain_ms=plain_s * 1e3,
+               bound_ms=bms, bound_by=by, bytes=work["bytes"],
+               ops=work["ops"], pops_per_vertex=work["pops_per_vertex"],
+               max_abs_err=err, launches=launches["fused_halo"])
+    log("plan", halo_block=rec, smi=smi)
+    del ranks
+    torch.cuda.empty_cache()
+    return launches["fused_halo"], rec
+
+
+def phase_plan(train_recs, front, archs=None, cfgs=None, block=None):
+    """[plan]: the planner's full cells, its plan at mesh (1, 1) held to
+    [train]'s figures, its DDMS plan beside [dist]'s, and one block of the
+    paper's field through the halo entry.  Returns the halo launches."""
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    plan_cells(archs)
+    plan_vs_train(train_recs, cfgs)
+    plan_vs_dist(front)
+    launches, _ = plan_block(smi, **(block or {}))
+    log("plan", seconds=round(time.perf_counter() - t_phase, 3), smi=smi)
+    return launches
 
 
 def phase_timing(isabel_256, report, plain=True):
@@ -2795,6 +3075,7 @@ def phase_timing(isabel_256, report, plain=True):
     from repro_torch.core.grid import Grid, vertex_order
     from repro_torch.kernels import lower_star as LS
     from repro_torch.kernels import ref
+    RL = _roofline()
     smi = nvidia_smi_line()
     records = {}
     g256 = Grid.of(256, 256, 256)
@@ -2817,10 +3098,10 @@ def phase_timing(isabel_256, report, plain=True):
         del out
         nb = neighbor_orders(g, o)
         runs = {"fused": (lambda: LS.fused_lower_star_gradient(g, o),
-                          dict(work, bytes=io_bytes(g.nv, 4, False))),
+                          dict(work, bytes=RL.io_bytes(g.nv, 4, False))),
                 "prepass": (lambda: LS.lower_star_gradient_prepass(
                     nb, o, rank_bound=g.nv),
-                    dict(work, bytes=io_bytes(g.nv, 4, True)))}
+                    dict(work, bytes=RL.io_bytes(g.nv, 4, True)))}
         for kernel, (fn, w) in runs.items():
             ms = cuda_ms(fn, reps=5)
             bms, by = bound_ms(w)
@@ -2865,7 +3146,8 @@ def time_halo(isabel_256, plain, smi):
         out = LS.fused_rows_from_halo_volume(ext)
         work = pairing_work(out[0], out[2])
         del out
-        work["bytes"] = io_bytes(c.nz * plane, 8, False, ghosts=2 * plane)
+        work["bytes"] = _roofline().io_bytes(c.nz * plane, 8, False,
+                                             ghosts=2 * plane)
         ms = cuda_ms(lambda: LS.fused_rows_from_halo_volume(ext), reps=5)
         bms, by = bound_ms(work)
         pms = cuda_ms(lambda: ops.lower_star_rows_halo(ext, "torch"),
@@ -2940,14 +3222,15 @@ def main(argv):
     launches, fields, results = phase_main(isabel)
     phase_gradient(isabel)
     halo_launches = phase_stream(fields, results)
-    dist_launches = phase_dist(isabel)
+    dist_launches, front = phase_dist(isabel)
     phase_approx(fields, results)
     del results
     phase_serve(fields)
     phase_cpu()
     oracle_launches = phase_oracle()
     phase_lm()
-    monitor_launches = phase_train()
+    monitor_launches, train_recs = phase_train()
+    plan_launches = phase_plan(train_recs, front)
     rec = phase_timing(isabel, report)
     kernels = []
     for key, src, line in (("fused", "fused.cu", 255),
@@ -2970,7 +3253,7 @@ def main(argv):
         "source": "src/repro_torch/kernels/csrc/fused.cu",
         "replaces": "src/repro/kernels/lower_star.py:325",
         "launches": halo_launches + dist_launches["fused_halo"]
-        + oracle_launches["fused_halo"],
+        + oracle_launches["fused_halo"] + plan_launches,
         "max_abs_err": halo_err,
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None})

@@ -480,7 +480,10 @@ def moe_meta(cfg: ModelConfig) -> Dict[str, PM]:
 def moe(cfg: ModelConfig, params, x):
     """Capacity-based top-k MoE with *sort-based* dispatch: token-choice
     assignments are ranked within their expert queue via a stable argsort
-    + bincount (O(T log T), no (T, E) or (T, E, cap) tensors), scattered
+    + per-expert counts (O(T log T), no (T, E) or (T, E, cap) tensors;
+    the counts are a ``scatter_add_`` of ones into E zeros, the reference's
+    ``bincount`` in a form whose output shape does not depend on the
+    data, so the step also runs on fake tensors for the planner), scattered
     into an (E*cap, d) buffer, run through the expert FFNs, and gathered
     back.  Returns (out, aux_loss)."""
     mo = cfg.moe
@@ -496,7 +499,8 @@ def moe(cfg: ModelConfig, params, x):
     expert = gate_idx.reshape(Tk)
     # position within expert queue: rank by stable sort over expert id
     order = torch.argsort(expert, stable=True)                # (Tk,)
-    counts = torch.bincount(expert, minlength=E)
+    counts = torch.zeros(E, dtype=expert.dtype, device=x.device) \
+        .scatter_add_(0, expert, torch.ones_like(expert))
     starts = torch.cumsum(counts, 0) - counts                 # (E,)
     pos_sorted = torch.arange(Tk, device=x.device) - starts[expert[order]]
     pos = torch.empty_like(pos_sorted).scatter_(0, order, pos_sorted)

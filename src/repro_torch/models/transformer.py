@@ -13,6 +13,10 @@ reused — the zamba2 weight-sharing scheme).
 ``params`` is a :class:`~repro_torch.models.layers.ParamTree` (what
 :func:`init_params` returns) or the nested dict of tensors it holds.
 Everything runs on the device of the parameters.
+
+The reference's activation-sharding hooks (``_constrain``) sit at the same
+places: the embedded inputs, each block's output and the logits.  They do
+nothing unless ``repro_torch.train.sharding.set_rules`` installed rules.
 """
 
 from __future__ import annotations
@@ -25,6 +29,11 @@ import torch
 from . import layers as L
 from .config import ModelConfig
 from .layers import PM, cast
+
+
+def _constrain(x, kind):
+    from repro_torch.train.sharding import constrain
+    return constrain(x, kind)
 
 
 def _params(params):
@@ -206,7 +215,8 @@ def lm_apply(cfg: ModelConfig, params, tokens, frontend_embeds=None,
     params = _params(params)
     if cfg.enc_dec:
         return _encdec_apply(cfg, params, tokens, frontend_embeds, remat)
-    x = _embed_inputs(cfg, params, tokens, frontend_embeds)
+    x = _constrain(_embed_inputs(cfg, params, tokens, frontend_embeds),
+                   "tokens")
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device).expand(B, S)
     shared = params.get("shared_attn")
@@ -214,9 +224,10 @@ def lm_apply(cfg: ModelConfig, params, tokens, frontend_embeds=None,
     for i in range(cfg.n_layers):
         x, a = _run_block(functools.partial(_block_apply, cfg), remat,
                           _index(params["layers"], i), x, pos, shared, i)
+        x = _constrain(x, "tokens")
         aux = aux + a
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return _unembed(cfg, params, x), aux
+    return _constrain(_unembed(cfg, params, x), "logits"), aux
 
 
 def _enc_block(cfg, p, x):
@@ -237,8 +248,8 @@ def _encoder_apply(cfg: ModelConfig, params, frames, remat: bool = False):
     frames = torch.as_tensor(frames, device=params["frame_proj"].device)
     x = L._einsum("btd,de->bte", cast(frames), cast(params["frame_proj"]))
     for i in range(cfg.enc_layers):
-        x = _run_block(functools.partial(_enc_block, cfg), remat,
-                       _index(params["enc"], i), x)
+        x = _constrain(_run_block(functools.partial(_enc_block, cfg), remat,
+                                  _index(params["enc"], i), x), "tokens")
     return L.rmsnorm(params["enc_ln"], x, cfg.norm_eps)
 
 
@@ -267,14 +278,15 @@ def _dec_block(cfg, p, x, pos, enc_out):
 def _encdec_apply(cfg: ModelConfig, params, tokens, frames,
                   remat: bool = False):
     enc_out = _encoder_apply(cfg, params, frames, remat)
-    x = _embed(params, tokens)
+    x = _constrain(_embed(params, tokens), "tokens")
     B, S, _ = x.shape
     pos = torch.arange(S, device=x.device).expand(B, S)
     for i in range(cfg.n_layers):
-        x = _run_block(functools.partial(_dec_block, cfg), remat,
-                       _index(params["layers"], i), x, pos, enc_out)
+        x = _constrain(_run_block(functools.partial(_dec_block, cfg), remat,
+                                  _index(params["layers"], i), x, pos,
+                                  enc_out), "tokens")
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    return _unembed(cfg, params, x), \
+    return _constrain(_unembed(cfg, params, x), "logits"), \
         torch.zeros((), dtype=torch.float32, device=x.device)
 
 

@@ -3,10 +3,11 @@
 reference's snapshot ``tests/data/api_surface.json``, and those of the LM
 substrate (``repro_torch.models.{config, layers, transformer}``,
 ``repro_torch.configs`` and its registry, ``repro_torch.data.pipeline``,
-``repro_torch.train.{optimizer, train_step, checkpoint, compression}`` and
-``repro_torch.launch.train``) against the reference's modules described
-live, both under the ``repro.`` -> ``repro_torch.`` renaming,
-with the reference's own ``describe_module``.  Every difference must be
+``repro_torch.train.{optimizer, train_step, checkpoint, compression,
+sharding}`` and ``repro_torch.launch.{train, mesh, roofline, dryrun}``)
+against the reference's modules described live, both under the
+``repro.`` -> ``repro_torch.`` renaming, with the reference's own
+``describe_module``.  Every difference must be
 one of ``DOCUMENTED`` (each with its reason), and every documented
 difference must still be one, so the list cannot go stale."""
 
@@ -119,6 +120,88 @@ DOCUMENTED = {
     "launch.train.load_checkpoint()": "imported from train.checkpoint: "
                                       "device=",
     "launch.train.run()": "device= (cuda unless named)",
+    "train.sharding.Mesh": "jax's Mesh class: a mesh here is a torch "
+                           "DeviceMesh or a mapping of axis name to size "
+                           "(a type alias for checkers only)",
+    "train.sharding.NamedSharding": "placements (param_shardings, "
+                                    "placements) in place of NamedSharding",
+    "train.sharding.P()": "the port's own partition spec, a tuple of "
+                          "mesh-axis names spelled as PartitionSpec's",
+    "train.sharding.P.UNCONSTRAINED": "PartitionSpec's; nothing in the "
+                                      "plan is unconstrained",
+    "train.sharding.P.count": "tuple's method, as P is a tuple",
+    "train.sharding.P.index": "tuple's method, as P is a tuple",
+    "train.sharding.P.reduced": "PartitionSpec's reduced axes: none here",
+    "train.sharding.P.unreduced": "PartitionSpec's unreduced axes: none "
+                                  "here",
+    "train.sharding.P.update": "PartitionSpec's; specs are built whole",
+    "train.sharding.axis_sizes": "axis sizes of a DeviceMesh or a mapping "
+                                 "(jax's mesh.shape)",
+    "train.sharding.placements": "a spec as torch.distributed.tensor "
+                                 "placements, in place of NamedSharding",
+    "train.sharding.set_rules()": "observe=: the planner's counter sees "
+                                  "each constrained activation's spec (no "
+                                  "with_sharding_constraint in eager "
+                                  "torch)",
+    "train.sharding.spec_devices": "the devices a spec splits a tensor "
+                                   "over, for per-device bytes",
+    "launch.mesh.make_field_mesh()": "device_type= (cuda unless named): a "
+                                     "DeviceMesh over the default process "
+                                     "group",
+    "launch.mesh.make_production_mesh()": "device_type= (cuda unless "
+                                          "named): a DeviceMesh over the "
+                                          "default process group",
+    "launch.roofline.GPUS_PER_NODE": "the H100 model: NVLink inside an "
+                                     "8-GPU node",
+    "launch.roofline.H100_BF16_FLOPS": "the shared kernel-bound rates "
+                                       "(chip_smoke.py's)",
+    "launch.roofline.H100_F32_FLOPS": "the shared kernel-bound rates",
+    "launch.roofline.HBM_BYTES_PER_S": "the shared kernel-bound rates",
+    "launch.roofline.INT_OPS_PER_S": "the shared kernel-bound rates",
+    "launch.roofline.IB_BW": "the H100 model: InfiniBand between nodes",
+    "launch.roofline.NVLINK_BW": "the H100 model: NVLink inside a node",
+    "launch.roofline.ICI_BW": "no TPU interconnect: NVLINK_BW and IB_BW",
+    "launch.roofline.analyze()": "takes the counted costs (no compiled "
+                                 "artifact in torch) and the rate the "
+                                 "FLOPs run at",
+    "launch.roofline.collective_bytes()": "sums the collectives the "
+                                          "sharding plan implies; the HLO "
+                                          "parser is not carried over (no "
+                                          "HLO in torch)",
+    "launch.roofline.asdict": "a dataclasses name the reference imports "
+                              "and does not use",
+    "launch.roofline.field": "a dataclasses name the reference imports "
+                             "and does not use",
+    "launch.roofline.io_bytes": "the lower-star launch's byte count, "
+                                "shared with chip_smoke.py",
+    "launch.roofline.link_bandwidth": "the link a collective's axes run on",
+    "launch.roofline.lm_collectives": "the LM step's collectives from the "
+                                      "plan (in place of the HLO's)",
+    "launch.roofline.ddms_collectives": "run_front's collectives from its "
+                                        "buffers (in place of the HLO's)",
+    "launch.dryrun.CostCounter": "the aten-op counter in place of XLA's "
+                                 "cost and memory analyses",
+    "launch.dryrun.DDMS_OPS_PER_VERTEX": "the measured integer operations "
+                                         "per vertex, in place of a TPU "
+                                         "guess",
+    "launch.dryrun.NamedSharding": "a jax.sharding name; placements here",
+    "launch.dryrun.P": "a jax.sharding name; sharding.P here",
+    "launch.dryrun.argument_bytes": "argument bytes from the plan (XLA's "
+                                    "memory_analysis there)",
+    "launch.dryrun.count_step": "one counted step on fake tensors (a "
+                                "compile there)",
+    "launch.dryrun.ddms_block_bytes": "run_front's per-block arrays (XLA's "
+                                      "memory_analysis there)",
+    "launch.dryrun.init_opt_state": "imported by the reference, unused "
+                                    "there",
+    "launch.dryrun.make_field_mesh()": "imported from launch.mesh: "
+                                       "device_type=",
+    "launch.dryrun.make_production_mesh()": "imported from launch.mesh: "
+                                            "device_type=",
+    "launch.dryrun.plan_cell": "lower_cell's plan on any mesh and shape "
+                               "(the (1, 1) check on the card)",
+    "launch.dryrun.plan_ddms": "lower_ddms's plan on any field and block "
+                               "count",
 }
 
 # the LM substrate's modules, held against the reference's live
@@ -128,7 +211,9 @@ LIVE_MODULES = ("repro.models.config", "repro.models.layers",
                 "repro.configs.registry", "repro.data.pipeline",
                 "repro.train.optimizer", "repro.train.train_step",
                 "repro.train.checkpoint", "repro.train.compression",
-                "repro.launch.train")
+                "repro.launch.train", "repro.train.sharding",
+                "repro.launch.mesh", "repro.launch.roofline",
+                "repro.launch.dryrun")
 
 
 def _renamed(x):
@@ -174,6 +259,16 @@ def differences():
 
 @pytest.fixture(scope="module")
 def live_differences():
+    # the reference's dry-run prepends a 512-device flag to XLA_FLAGS when
+    # it is imported; keep it out of this process's later subprocesses
+    saved = os.environ.get("XLA_FLAGS")
+    try:
+        import repro.launch.dryrun  # noqa: F401
+    finally:
+        if saved is None:
+            os.environ.pop("XLA_FLAGS", None)
+        else:
+            os.environ["XLA_FLAGS"] = saved
     out = {}
     for mod in LIVE_MODULES:
         out.update(_differences(mod, _renamed(describe_module(mod)),
