@@ -3,6 +3,8 @@
 
     python3 chip_smoke.py                  # from the repository root, one GPU
     python3 chip_smoke.py --timing-of DIR  # the timing phase alone, on DIR
+    python3 chip_smoke.py --group          # build, dist and group alone
+                                           # (on 2-4 GPUs: one rank each)
 
 Phases (one line each; any failing phase makes the script exit non-zero):
 
@@ -75,9 +77,26 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               buffer sizes and peak device memory are logged; the launch
               counters are zeroed before the distributed runs and read
               after (halo entry 24, prepass 32, fused 2, the plain
-              version 0).  ``GroupRing`` (one block per rank over NCCL)
-              needs two cards and is not run here.
-6. approx   — approximation at ``isabel`` 256^3: the ``Hierarchy`` on
+              version 0).
+6. group    — the front-end over a ``torch.distributed`` process group:
+              a one-rank NCCL group (``file://`` rendezvous) whose
+              ``GroupRing`` (``block_ring``) holds all 8 blocks: (a)
+              ``run_front`` on ``isabel`` 256^3 through the halo entry,
+              sample-sorted (int32) and rank-free (int64), every output
+              equal to phase 5's ``LocalRing`` outputs, seconds beside
+              phase 5's; (b) the ``shardmap`` backend's rows at 256^3
+              equal to the ``fused`` backend's; (c) ``distributed=True``
+              ``shardmap`` at ``isabel`` 64^3, payload equal to the same
+              run without a group.  Launch counters zeroed just before
+              the group's runs and read just after (halo entry 32, no
+              other kernel, the plain version never); the group is
+              destroyed before phase 13 opens its fake one.  On a host
+              with two cards or more, one NCCL rank per card (2 or 4, 8
+              blocks) repeats (a) and (c): rank 0's outputs equal to a
+              ``LocalRing`` run on its card, every other rank's equal to
+              rank 0's by a SHA-256 of each array; with one card a line
+              says so.
+7. approx   — approximation at ``isabel`` 256^3: the ``Hierarchy`` on
               the card (levels, dims and bounds equal to the CPU's; the
               level-1 ``block_minmax`` and the cascade timed beside their
               byte bounds and beside ``max_pool3d``), ``approximate`` at
@@ -92,16 +111,16 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               payload.  Launch counters zeroed just before and read just
               after: the fused kernel once per level, the plain version
               never on the card.
-7. serve    — ``TopoService(cache=True)`` on the card: four same-shape
+8. serve    — ``TopoService(cache=True)`` on the card: four same-shape
               64^3 fields from client threads in one batched dispatch
               (equal to ``run``), resubmitted as cache hits that launch no
               kernel, a progressive 256^3 submit with ``deadline_s``
               (preview first), a later ``epsilon`` submit served from the
               refined entry, a traced request (one span per stage), a
               ``wire=True`` payload, and ``stats_payload``.
-8. cpu      — diagrams on the card equal those on the CPU (32^3 wavelet,
+9. cpu      — diagrams on the card equal those on the CPU (32^3 wavelet,
               32^3 random, a thin 2-D grid).
-9. oracle   — the card's kernels against the numpy oracles: fused and
+10. oracle  — the card's kernels against the numpy oracles: fused and
               prepass rows byte-equal to literal Robins on the host (and
               the scattered gradients equal) on ``random``, ``wavelet``
               and ``isabel`` 16^3 (``isabel`` also in the masked form)
@@ -120,7 +139,7 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               per check with both sides' seconds; launch counters zeroed
               just before and read just after (every kernel launched,
               the plain version never).
-10. lm      — the LM substrate's serving path (``repro_torch.models``,
+11. lm      — the LM substrate's serving path (``repro_torch.models``,
               ``repro_torch.configs``, ``repro_torch.serve.generate``):
               the ten smoke architectures on the card against the CPU from
               one seeded parameter tree (``lm_apply`` logits and aux, two
@@ -148,7 +167,7 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               token by token) and one ``moe`` layer of moonshot at B*S =
               4096 (against a loop over experts).  Tolerances are stated
               beside LM_ATOL.  No hand-written kernel runs here.
-11. train   — the LM substrate's training (``repro_torch.data``,
+12. train   — the LM substrate's training (``repro_torch.data``,
               ``repro_torch.train``, ``repro_torch.launch``): the ten
               smoke architectures' train-step gradients on the card
               against the CPU from one seeded tree, microbatches=2 and
@@ -173,7 +192,7 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               counted (zeroed just before, read just after) and its
               re-check a cache hit that launches nothing.  Tolerances
               are stated beside TRAIN_LOSS_RTOL.
-12. plan    — multi-device planning (``repro_torch.launch.{mesh,
+13. plan    — multi-device planning (``repro_torch.launch.{mesh,
               roofline, dryrun}``, ``repro_torch.train.sharding``): the
               planner on this host for every architecture at
               ``train_4k`` on the (data=16, model=16) mesh and the DDMS
@@ -194,7 +213,7 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               instantiation, its launch counted, its rows equal to the
               plain version's (timed) and to the fused in-memory
               entry's, timed beside its bound.
-13. timing  — CUDA-event times of ``fused`` and ``prepass`` at 256^3
+14. timing  — CUDA-event times of ``fused`` and ``prepass`` at 256^3
               (``isabel``, ``random``) and 512^3 (``random``) and of the
               plain version at 256^3, each beside its bound (the longer of
               its bytes over 3.35 TB/s and the integer operations the
@@ -209,7 +228,7 @@ The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script prints no result and exits non-zero.
 
-``--timing-of DIR`` runs only phase 13 (without the plain version) on the
+``--timing-of DIR`` runs only phase 14 (without the plain version) on the
 port in another tree DIR, for instance the parent commit unpacked with
 ``git archive`` into a git-ignored directory; it prints no result lines.
 To compare two trees, time them in turns in one call on one card (A, B,
@@ -929,8 +948,9 @@ def phase_dist(isabel_256, n=256):
     path on ``random`` 32^3 and ``isabel`` 64^3 (the host token D1 bounds
     the size), payloads equal to the sequential runs'.  The launch
     counters are zeroed just before the distributed runs and read just
-    after; returns them, and the sample-sorted ``run_front``'s stats and
-    seconds (for [plan])."""
+    after; returns them, the sample-sorted ``run_front``'s stats and
+    seconds (for [plan]), and both ``run_front`` outputs with their slack
+    and seconds (for [group])."""
     import torch
     from repro_torch.core.grid import Grid
     from repro_torch.distributed.pairing_rounds import pairing_fixpoint
@@ -974,8 +994,8 @@ def phase_dist(isabel_256, n=256):
         _zero_counts()
     sort_out = out
     front = dict(stats, seconds=secs, dims=dims, blocks=nb)
-    rf_out, _, _ = _run_front_logged("fused, rank-free", dims, f, nb,
-                                     use_sample_sort=False)
+    rf_out, _, rf_secs = _run_front_logged("fused, rank-free", dims, f, nb,
+                                           use_sample_sort=False)
     pre = {}
     for ov in (True, False):
         pre[ov], _, _ = _run_front_logged(
@@ -1012,6 +1032,9 @@ def phase_dist(isabel_256, n=256):
             raise AssertionError(f"overlap_comm on/off differ in {k}")
     log("dist", front="isabel", dims=dims, blocks=nb, equals_in_memory=True,
         rank_free_equals=True, prepass_overlap_equal=True)
+    # [group] holds its GroupRing runs against these LocalRing outputs
+    local = dict(sort=sort_out, rankfree=rf_out, slack=slack,
+                 seconds=dict(sort=secs, rankfree=rf_secs))
     del sort_out, rf_out, pre, out
 
     # the halo entry's int32 instantiation at the distributed shape: one
@@ -1077,7 +1100,259 @@ def phase_dist(isabel_256, n=256):
     log("dist", seconds=round(time.perf_counter() - t_phase, 3), smi=smi)
     del oracle, oracle_h, f, f_h
     torch.cuda.empty_cache()
-    return launches, front
+    return launches, front, local
+
+
+GROUP_CARDS_MAX = 4
+
+
+def _equal_outputs(got, want, what):
+    """Every ``run_front`` array of ``got`` equal to ``want``'s, dtype
+    and shape included."""
+    import torch
+    if set(got) != set(want):
+        raise AssertionError(f"{what}: keys {sorted(got)} != "
+                             f"{sorted(want)}")
+    for k, v in want.items():
+        g = got[k]
+        if g.dtype != v.dtype or not torch.equal(g, v):
+            raise AssertionError(f"{what}: {k} differs from the LocalRing's")
+
+
+def _group_front(dims, f, nb, slack, kind):
+    """``run_front`` over the default ring (the process group's), timed
+    to a synchronize: the sample sort at [dist]'s slack or rank-free."""
+    import torch
+    from repro_torch.distributed import run_front
+    kw = dict(sort_slack=slack) if kind == "sort" \
+        else dict(use_sample_sort=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, out = run_front(dims, f, nb, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _group_shardmap(req, nb):
+    """(payload, seconds) of the ``distributed=True`` ``shardmap`` run of
+    ``req`` in ``nb`` blocks."""
+    from repro_torch.pipeline import PersistencePipeline
+    t0 = time.perf_counter()
+    res = PersistencePipeline("shardmap", n_blocks=nb,
+                              distributed=True).run(req)
+    return res.to_bytes(), time.perf_counter() - t0
+
+
+def _digest(out):
+    """{key: SHA-256 of dtype, shape and bytes} of ``run_front`` outputs."""
+    import hashlib
+    return {k: hashlib.sha256(f"{v.dtype}{tuple(v.shape)}".encode()
+                              + v.cpu().numpy().tobytes()).hexdigest()
+            for k, v in out.items()}
+
+
+def _group_rank(rank, world, init, root, field, dims, nb, slack, n_small,
+                want_small, out_dir):
+    """One NCCL rank of [group]'s multi-card case on card ``rank``:
+    (a) ``run_front`` on ``field`` (``dims``) over the group, each output
+    held on rank 0 against a LocalRing run on its card (the sample-sorted
+    run twice, the repeat timed apart), and (c) the
+    ``distributed=True`` payload at ``n_small``^3 equal to ``want_small``
+    (the run without a group).  Writes its seconds, launches and the
+    digests of its (a) outputs to ``out_dir/rank<r>.json``."""
+    sys.path.insert(0, os.path.join(root, "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.grid import Grid
+    from repro_torch.distributed import LocalRing, block_ring, run_front
+    from repro_torch.fields.generators import make_field
+    from repro_torch.kernels import lower_star as LS
+    from repro_torch.pipeline import TopoRequest
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        f = torch.from_numpy(field).cuda()
+        ring = block_ring(nb)
+        if ring.bl != nb // world:
+            raise AssertionError(f"rank {rank}: {ring.bl} blocks held")
+        d_small = (n_small,) * 3
+        req = TopoRequest(field=make_field("isabel", d_small, seed=SEED),
+                          grid=Grid.of(*d_small))
+        # the ranks start apart, and the first collective builds the
+        # communicator: both stay out of the timed runs
+        dist.barrier()
+        _zero_counts()
+        outs, secs = {}, {}
+        for kind in ("sort", "rankfree"):
+            outs[kind], secs[kind] = _group_front(dims, f, nb, slack, kind)
+        # the first run also sets NCCL's point-to-point channels up: the
+        # repeat shows what a run costs once they exist
+        again, secs["sort_again"] = _group_front(dims, f, nb, slack, "sort")
+        _equal_outputs(again, outs["sort"], f"{world} ranks, sort again")
+        del again
+        payload, secs["shardmap_distributed"] = _group_shardmap(req, nb)
+        torch.cuda.synchronize()
+        launches = dict(LS.LAUNCHES)
+        dist.barrier()
+        if payload != want_small:
+            raise AssertionError(f"rank {rank}: the distributed=True "
+                                 f"payload differs from the run without "
+                                 f"a group")
+        digests = {kind: _digest(out) for kind, out in outs.items()}
+        if rank == 0:
+            for kind, out in outs.items():
+                kw = dict(sort_slack=slack) if kind == "sort" \
+                    else dict(use_sample_sort=False)
+                _, want = run_front(dims, f, nb, ring=LocalRing(nb), **kw)
+                _equal_outputs(out, want, f"{world} ranks, {kind}")
+                del want
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(dict(seconds=secs, launches=launches,
+                           device=str(ring.device), digests=digests), fh)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def group_ranks(isabel_256, dims, nb, slack, n_small, want_small, smi):
+    """[group]'s multi-card case: one NCCL rank per card (2 or 4 of
+    them), ``nb`` blocks."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    cards = torch.cuda.device_count()
+    world = 4 if cards >= GROUP_CARDS_MAX else 2
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(_group_rank, nprocs=world, join=True, args=(
+            world, "file://" + os.path.join(tmp, "rendezvous"), HERE,
+            isabel_256, dims, nb, slack, n_small, want_small, tmp))
+        wall = time.perf_counter() - t0
+        recs = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                recs.append(json.load(fh))
+    want = {"fused": 0, "prepass": 0, "fused_halo": 4 * (nb // world)}
+    for r, rec in enumerate(recs):
+        log("group", ranks=world, rank=r, device=rec["device"],
+            blocks_per_rank=nb // world, seconds={
+                k: round(v, 4) for k, v in rec["seconds"].items()},
+            launches=rec["launches"], smi=smi)
+        if rec["launches"] != want:
+            raise AssertionError(f"rank {r}: launches {rec['launches']}, "
+                                 f"want {want}")
+        # rank 0's outputs equal its card's LocalRing run (checked there)
+        if rec["digests"] != recs[0]["digests"]:
+            raise AssertionError(f"rank {r}: run_front outputs differ from "
+                                 f"rank 0's")
+    log("group", ranks=world, cards=cards, run_front_equals_local=True,
+        every_rank_equals_rank0=True, payload_equals_no_group=True,
+        spawn_seconds=round(wall, 3), smi=smi)
+
+
+def phase_group(isabel_256, local, n=256, n_small=64, nb=8):
+    """[group]: the front-end over a ``torch.distributed`` process group
+    on the card: a one-rank NCCL group holding all ``nb`` blocks (a
+    ``GroupRing`` with Bl = nb, from ``block_ring``).  (a) ``run_front``
+    on ``isabel`` n^3 with the halo entry, sample-sorted (int32 ranks, at
+    [dist]'s slack) and rank-free (int64 keys), every output equal to
+    [dist]'s LocalRing outputs ``local``; (b) the ``shardmap`` backend's
+    rows at n^3 equal to the ``fused`` backend's; (c) the
+    ``distributed=True`` ``shardmap`` payload at ``n_small``^3 equal to
+    the same run without a group.  The comparisons' own runs come first;
+    the launch counters are zeroed just before the group's runs and read
+    just after.  Where the host has two cards or more, one NCCL rank per
+    card (up to 4) repeats (a) and (c).  The group is destroyed before
+    the phase returns the launches."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.grid import Grid, vertex_order
+    from repro_torch.distributed import GroupRing, block_ring
+    from repro_torch.fields.generators import make_field
+    from repro_torch.kernels import lower_star as LS
+    from repro_torch.kernels import ref
+    from repro_torch.pipeline import TopoRequest
+    from repro_torch.pipeline.backends import get_backend
+    smi = nvidia_smi_line()
+    t_phase = time.perf_counter()
+    slack = local["slack"]
+    dims = (n, n, n)
+    g = Grid.of(*dims)
+    f = torch.from_numpy(isabel_256).cuda()
+    order = vertex_order(f)[None]
+    want_rows = get_backend("fused").rows(g, order)
+    d_small = (n_small,) * 3
+    req = TopoRequest(field=make_field("isabel", d_small, seed=SEED),
+                      grid=Grid.of(*d_small))
+    want_small, nogroup_s = _group_shardmap(req, nb)
+    torch.cuda.synchronize()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method="file://" + os.path.join(tmp, "rendezvous"),
+            rank=0, world_size=1)
+        try:
+            dist.barrier()            # builds the communicator, untimed
+            ring = block_ring(nb)
+            if not isinstance(ring, GroupRing) or ring.bl != nb:
+                raise AssertionError(f"block_ring gave {ring!r} under the "
+                                     f"group")
+            _zero_counts()
+            outs, secs = {}, {}
+            for kind in ("sort", "rankfree"):
+                outs[kind], secs[kind] = _group_front(dims, f, nb, slack,
+                                                      kind)
+            t0 = time.perf_counter()
+            got_rows = get_backend("shardmap").rows_for(g, order,
+                                                        n_blocks=nb)
+            torch.cuda.synchronize()
+            secs["shardmap_rows"] = time.perf_counter() - t0
+            payload, secs["shardmap_distributed"] = _group_shardmap(req, nb)
+            torch.cuda.synchronize()
+            launches = dict(LS.LAUNCHES)
+            plain = ref.CUDA_CALLS["lower_star_gradient_torch"]
+        finally:
+            dist.destroy_process_group()
+    want = {"fused": 0, "prepass": 0, "fused_halo": 4 * nb}
+    log("group", launches=launches, expected=want, plain_on_card=plain)
+    if launches != want or plain:
+        raise AssertionError(f"[group] launches {launches} (plain {plain}),"
+                             f" want {want} and no plain version")
+    for kind in ("sort", "rankfree"):
+        _equal_outputs(outs[kind], local[kind], f"one rank, {kind}")
+        log("group", run_front=kind, dims=dims, blocks=nb, ranks=1,
+            blocks_per_rank=nb, seconds=round(secs[kind], 4),
+            dist_seconds=round(local["seconds"][kind], 4),
+            equals_local_ring=True, smi=smi)
+    del outs
+    for name, a, b in zip(("status", "partner", "vstat", "vpart"),
+                          got_rows, want_rows):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise AssertionError(f"shardmap rows over the group differ "
+                                 f"from fused in {name}")
+    log("group", backend="shardmap", dims=dims, blocks=nb,
+        rows_equal_fused=True, seconds=round(secs["shardmap_rows"], 4),
+        smi=smi)
+    del got_rows, want_rows, order, f
+    if payload != want_small:
+        raise AssertionError("distributed=True shardmap payload over the "
+                             "group differs from the run without one")
+    log("group", distributed="isabel", dims=d_small, blocks=nb,
+        seconds=round(secs["shardmap_distributed"], 4),
+        no_group_seconds=round(nogroup_s, 4), payload_equals_no_group=True,
+        smi=smi)
+    local.clear()                 # [dist]'s outputs leave the card
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        group_ranks(isabel_256, dims, nb, slack, n_small, want_small, smi)
+    else:
+        log("group", cards=cards, multi_rank="not run: one NCCL rank per "
+            "card needs two cards or more")
+    log("group", seconds=round(time.perf_counter() - t_phase, 3), smi=smi)
+    return launches
 
 
 # budget of the dense bottleneck check: an (n x m) float64 distance matrix
@@ -3171,6 +3446,17 @@ def time_halo(isabel_256, plain, smi):
     return tot
 
 
+def group_only():
+    """The build, [dist] and [group] alone: on a host with two cards or
+    more, the quickest check of the multi-card front-end."""
+    from repro_torch.fields.generators import make_field
+    phase_build(nvidia_smi_line())
+    isabel = make_field("isabel", (256, 256, 256), seed=SEED)
+    _, _, local = phase_dist(isabel)
+    phase_group(isabel, local)
+    return 0
+
+
 def time_tree(root):
     """The [timing] phase alone, on the kernels of the port in ``root``
     (for instance another commit unpacked with ``git archive``)."""
@@ -3192,6 +3478,10 @@ def main(argv):
                     help="only time the kernels of the port in the tree DIR "
                     "([timing] fields, no plain version, no result lines); "
                     "to compare two trees, time each in turns in one call")
+    ap.add_argument("--group", action="store_true",
+                    help="only build and run [dist] and [group] (one NCCL "
+                    "rank per card where the host has two or more); no "
+                    "result lines")
     args = ap.parse_args(argv)
     root = os.path.abspath(args.timing_of or HERE)
     if not os.path.isdir(os.path.join(root, "src", "repro_torch")):
@@ -3209,6 +3499,8 @@ def main(argv):
         return 2
     if args.timing_of:
         return time_tree(root)
+    if args.group:
+        return group_only()
     t_start = time.perf_counter()
     smi = nvidia_smi_line()
     log("device", name=torch.cuda.get_device_name(0),
@@ -3222,7 +3514,9 @@ def main(argv):
     launches, fields, results = phase_main(isabel)
     phase_gradient(isabel)
     halo_launches = phase_stream(fields, results)
-    dist_launches, front = phase_dist(isabel)
+    dist_launches, front, local = phase_dist(isabel)
+    group_launches = phase_group(isabel, local)
+    del local
     phase_approx(fields, results)
     del results
     phase_serve(fields)
@@ -3241,7 +3535,7 @@ def main(argv):
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": f"src/repro/kernels/lower_star.py:{line}",
             "launches": launches[key] + dist_launches[key]
-            + oracle_launches[key]
+            + group_launches[key] + oracle_launches[key]
             + (monitor_launches if key == "fused" else 0),
             "max_abs_err": max_err,
             "ms": r["ms"], "plain_ms": rec["plain_ms"],
@@ -3253,7 +3547,8 @@ def main(argv):
         "source": "src/repro_torch/kernels/csrc/fused.cu",
         "replaces": "src/repro/kernels/lower_star.py:325",
         "launches": halo_launches + dist_launches["fused_halo"]
-        + oracle_launches["fused_halo"] + plan_launches,
+        + group_launches["fused_halo"] + oracle_launches["fused_halo"]
+        + plan_launches,
         "max_abs_err": halo_err,
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
         "bound_by": r["bound_by"], "library_ms": None})

@@ -15,15 +15,17 @@ go through a :class:`Ring`:
   ``psum`` / ``pmax`` reductions over dim 0.  Every op covers all blocks
   at once; this is how ``n_blocks > 1`` runs on one card and in the CPU
   tests.
-- :class:`GroupRing` — one block per rank of a ``torch.distributed``
-  process group (``Bl == 1``): shifts through ``batch_isend_irecv``,
-  ``all_gather_into_tensor``, ``all_to_all_single`` and ``all_reduce``.
-  gloo on the CPU, NCCL across cards.
+- :class:`GroupRing` — ``Bl = n_blocks / world`` consecutive blocks per
+  rank of a ``torch.distributed`` process group: the same ops inside the
+  rank's stack, and across ranks ``batch_isend_irecv`` (one edge block
+  per shift), ``all_gather_into_tensor``, ``all_to_all_single`` and
+  ``all_reduce``.  gloo on the CPU, NCCL across cards, one rank per card.
 
-Shapes, for ``x`` of shape ``(Bl, ...)``: ``shift`` and the reductions
-keep it; ``all_gather`` returns ``(Bl, n_blocks, ...)``; ``all_to_all``
-takes and returns ``(Bl, n_blocks, ...)``, where ``out[b, s]`` is what
-block ``s`` put in ``x[s, b]``.
+:func:`block_ring` chooses between them.  Shapes, for ``x`` of shape
+``(Bl, ...)``: ``shift`` and the reductions keep it; ``all_gather``
+returns ``(Bl, n_blocks, ...)``; ``all_to_all`` takes and returns ``(Bl,
+n_blocks, ...)``, where ``out[b, s]`` is what block ``s`` put in ``x[s,
+b]``.
 """
 
 from __future__ import annotations
@@ -75,13 +77,20 @@ class Ring:
 
 
 class LocalRing(Ring):
-    """Every block in this process, stacked on dim 0 on one device."""
+    """Every block in this process, stacked on dim 0 on one device
+    (``None`` means ``"cuda"``, which must be available)."""
 
     def __init__(self, n_blocks: int, device=None):
         if n_blocks < 1:
             raise ValueError(f"n_blocks must be >= 1, got {n_blocks}")
+        dev = torch.device("cuda" if device is None else device)
+        if dev.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("LocalRing runs on CUDA by default, and CUDA "
+                               "is not available; pass device='cpu'")
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
         self.n_blocks = int(n_blocks)
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = dev
 
     def blocks(self) -> torch.Tensor:
         return torch.arange(self.n_blocks, dtype=torch.int64,
@@ -110,20 +119,46 @@ class LocalRing(Ring):
 
 
 class GroupRing(Ring):
-    """One block per rank of a ``torch.distributed`` process group.
+    """``Bl = n_blocks / world`` consecutive blocks per rank of a
+    ``torch.distributed`` process group: rank ``r`` holds blocks ``r*Bl``
+    to ``r*Bl + Bl - 1``, stacked on dim 0.  ``n_blocks`` defaults to the
+    world size (one block per rank).
 
-    ``device`` is where this rank's tensors live: ``"cuda"`` under NCCL
-    (the current device), the CPU under gloo (the default)."""
+    ``device`` is where this rank's tensors live, of a type the group's
+    backend drives (``dist.get_backend_config``; gloo's CUDA tensors do
+    not count).  It defaults to the current CUDA device where the group
+    drives CUDA (NCCL), else the CPU (gloo); another device raises."""
 
-    def __init__(self, group=None, device=None):
+    def __init__(self, group=None, device=None, n_blocks=None):
         import torch.distributed as dist
         self._dist = dist
         self.group = group
         self.rank = dist.get_rank(group)
-        self.n_blocks = dist.get_world_size(group)
-        if device is None:
-            device = "cuda" if dist.get_backend(group) == "nccl" else "cpu"
-        self.device = torch.device(device)
+        self.world = dist.get_world_size(group)
+        n_blocks = self.world if n_blocks is None else int(n_blocks)
+        if n_blocks < 1 or n_blocks % self.world:
+            raise ValueError(
+                f"n_blocks={n_blocks} does not divide over the {self.world} "
+                f"ranks of the process group; choose a multiple of "
+                f"{self.world}")
+        self.n_blocks = n_blocks
+        self.bl = n_blocks // self.world
+        config = dist.get_backend_config(group)   # "cpu:gloo,cuda:nccl"
+        by_type = dict(p.split(":") for p in config.split(","))
+        drives = [t for t in ("cuda", "cpu") if t in by_type]
+        if by_type.get("cuda") == "gloo":
+            drives.remove("cuda")     # gloo stages CUDA through the host
+        dev = torch.device(device if device is not None
+                           else drives[0] if drives else "cpu")
+        if dev.type not in drives or dev.type == "cuda" and \
+                dev.index not in (None, torch.cuda.current_device()):
+            raise ValueError(
+                f"the process group ({config}) runs its ring on "
+                f"{' or '.join(drives) or 'no device'}, not on {dev}; run "
+                f"on the group's device")
+        if dev.type == "cuda":
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
 
     def _peer(self, r: int) -> int:
         if self.group is None:
@@ -137,54 +172,94 @@ class GroupRing(Ring):
                 else x).contiguous()
 
     def blocks(self):
-        return torch.tensor([self.rank], dtype=torch.int64,
+        lo = self.rank * self.bl
+        return torch.arange(lo, lo + self.bl, dtype=torch.int64,
                             device=self.device)
 
     def shift_async(self, x, up, wrap=False):
-        dist, nb, r = self._dist, self.n_blocks, self.rank
-        send = self._wire(x[0])
-        recv = torch.zeros_like(send)
+        # the roll moves the blocks inside the rank; the edge slot takes
+        # the neighbouring rank's edge block (zeros at the ring's ends
+        # unless ``wrap``; at world 1 the roll alone wraps)
+        dist, w, r = self._dist, self.world, self.rank
+        out = torch.roll(x, 1 if up else -1, dims=0)
+        edge = 0 if up else -1
+        if w == 1:
+            if not wrap:
+                out[edge] = 0
+            return lambda: out
+        send = self._wire(x[-1 if up else 0])
+        recv = torch.empty_like(send)
         dst, src = (r + 1, r - 1) if up else (r - 1, r + 1)
+        has_src = wrap or 0 <= src < w
         ops = []
-        if nb > 1 and (wrap or 0 <= dst < nb):
-            ops.append(dist.P2POp(dist.isend, send, self._peer(dst % nb),
+        if wrap or 0 <= dst < w:
+            ops.append(dist.P2POp(dist.isend, send, self._peer(dst % w),
                                   self.group))
-        if nb > 1 and (wrap or 0 <= src < nb):
-            ops.append(dist.P2POp(dist.irecv, recv, self._peer(src % nb),
+        if has_src:
+            ops.append(dist.P2POp(dist.irecv, recv, self._peer(src % w),
                                   self.group))
-        if nb == 1 and wrap:
-            recv = send.clone()
-        reqs = dist.batch_isend_irecv(ops) if ops else []
+        else:
+            out[edge] = 0
+        reqs = dist.batch_isend_irecv(ops)
 
         def wait():
+            # under NCCL, wait() orders the receive before the copy on
+            # the current stream
             for q in reqs:
                 q.wait()
-            return recv.to(x.dtype)[None]
+            if has_src:
+                out[edge] = recv.to(x.dtype)
+            return out
         return wait
 
     def all_gather(self, x):
-        src = self._wire(x[0]).reshape(-1)
-        out = torch.empty(self.n_blocks * src.numel(), dtype=src.dtype,
+        src = self._wire(x).reshape(-1)
+        out = torch.empty(self.world * src.numel(), dtype=src.dtype,
                           device=src.device)
+        # all_gather_single replaces all_gather_into_tensor in newer torch
         gather = getattr(self._dist, "all_gather_single", None) \
             or self._dist.all_gather_into_tensor
         gather(out, src, group=self.group)
-        return out.to(x.dtype).reshape((1, self.n_blocks) + x.shape[1:])
+        out = out.to(x.dtype).reshape((self.n_blocks,) + x.shape[1:])
+        return out[None].expand((self.bl,) + out.shape)
 
     def all_to_all(self, x):
-        src = self._wire(x[0])
-        out = torch.empty_like(src)
-        self._dist.all_to_all_single(out, src, group=self.group)
-        return out.to(x.dtype)[None]
+        # one chunk of Bl x Bl (source, destination) block pairs per
+        # destination rank; recv[p, i, j] is what block p*Bl + i put in
+        # x[., j]
+        w, bl, tail = self.world, self.bl, x.shape[2:]
+        send = self._wire(x.reshape((bl, w, bl) + tail).transpose(0, 1))
+        recv = torch.empty_like(send)
+        self._dist.all_to_all_single(recv, send, group=self.group)
+        return recv.to(x.dtype).reshape((self.n_blocks, bl) + tail) \
+            .transpose(0, 1).contiguous()
 
-    def _reduce(self, x, op):
-        y = self._wire(x).clone()
+    def _reduce(self, local, x, op):
+        y = local.contiguous()
         self._dist.all_reduce(y, op=op, group=self.group)
-        return y.to(x.dtype)
+        return y.to(x.dtype).expand(x.shape)
 
     def psum(self, x):
-        return self._reduce(x, self._dist.ReduceOp.SUM)
+        return self._reduce(self._wire(x).sum(0, keepdim=True), x,
+                            self._dist.ReduceOp.SUM)
 
     def pmax(self, x):
-        return self._reduce(x, self._dist.ReduceOp.MAX)
+        return self._reduce(self._wire(x).amax(0, keepdim=True), x,
+                            self._dist.ReduceOp.MAX)
 
+
+def block_ring(n_blocks: int, device=None) -> Ring:
+    """The ring of ``n_blocks`` blocks for this process: a
+    :class:`GroupRing` over the default process group whenever one is
+    initialised (``n_blocks`` must divide by its world size; the
+    dry-run's ``fake`` group does not count), else a :class:`LocalRing`
+    on ``device``.  Under a group every rank of it must make the call
+    (each runs its own blocks and joins the ring's collectives), and
+    ``device``, if given, must be one the group's ring runs on (see
+    :class:`GroupRing`): nothing is copied to another one.  A rank-local
+    run under a live group takes a ``LocalRing`` explicitly."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_backend() != "fake":
+        return GroupRing(device=device, n_blocks=n_blocks)
+    return LocalRing(n_blocks, device)

@@ -4,8 +4,9 @@ PyTorch counterpart of ``repro.distributed.shardmap_pipeline``.  The
 scalar field is z-slab decomposed into ``n_blocks`` blocks; the
 per-block program (:func:`front_device_fn`) is written over a leading
 block axis and talks to its neighbours through a :class:`~.comm.Ring`
-(all blocks on one device with :class:`~.comm.LocalRing`, one block per
-rank with :class:`~.comm.GroupRing`).  Each block:
+(all blocks on one device with :class:`~.comm.LocalRing`, ``n_blocks /
+world`` consecutive blocks per rank with :class:`~.comm.GroupRing`).
+Each block:
 
   1. *array preconditioning*: the distributed sample sort gives global
      dense vertex ranks (:mod:`.order`), or rank-free (value, gid) keys;
@@ -50,7 +51,7 @@ from repro_torch.kernels.lower_star import (fused_rows_from_halo_volume,
 from repro_torch.kernels.ref import lower_star_gradient_torch
 from repro_torch.obs import flight as _flight
 
-from .comm import LocalRing, Ring
+from .comm import Ring, block_ring
 from .order import rankfree_keys, sample_sort_ranks
 
 OMEGA = -2
@@ -589,27 +590,35 @@ def run_front(dims, f, n_blocks: int, ring: Optional[Ring] = None,
     """Run the distributed front-end on ``n_blocks`` z-slabs of the field
     ``f`` (flat or shaped, numpy or torch, the whole grid).
 
-    ``ring`` defaults to a :class:`LocalRing` on ``device`` (``None``
-    means ``"cuda"``); with a :class:`GroupRing` each rank runs its own
-    block.  Returns ``(cfg, out)``: ``out`` holds the reference's keys as
-    tensors, blocked outputs concatenated over the blocks in order, the
-    replicated ones once.  ``stats`` (a dict) receives the per-step
-    seconds, ring rotations, sample-sort bucket peak and buffer sizes.
+    ``ring`` defaults to :func:`~.comm.block_ring`: a :class:`GroupRing`
+    over the default process group where one is initialised (every rank
+    of it must make the call and runs its own ``n_blocks / world``
+    blocks; ``device``, or else the device a tensor ``f`` off the host
+    lies on, must be the group's), else a :class:`LocalRing` on
+    ``device`` (``None`` means ``"cuda"``).  Such a field moves to
+    another device only where ``device`` asks for it: otherwise a ring
+    elsewhere raises ``ValueError``.  Returns ``(cfg, out)``, the same
+    on every rank: ``out`` holds the reference's keys as tensors, blocked
+    outputs concatenated over the blocks in order, the replicated ones
+    once.
+    ``stats`` (a dict) receives the per-step seconds, ring rotations,
+    sample-sort bucket peak and buffer sizes.
     Raises :class:`CritCapacityError` (after a flight-recorder dump) when
     a block overflows its triplet buffers."""
     cfg = FrontConfig(tuple(int(d) for d in dims), n_blocks, **cfg_kw)
     cfg.nz_local  # eager divisibility check: fail with dims/blocks named
+    f = f if isinstance(f, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(f))
+    # a field off the host stays on its device unless ``device`` asks
+    home = f.device if device is None and f.device.type != "cpu" else None
     if ring is None:
-        dev = torch.device("cuda" if device is None else device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("run_front runs on CUDA by default, and CUDA "
-                               "is not available; pass device='cpu'")
-        ring = LocalRing(n_blocks, dev)
+        ring = block_ring(n_blocks, device if home is None else home)
     elif ring.n_blocks != n_blocks:
         raise ValueError(f"the ring has {ring.n_blocks} blocks, not "
                          f"{n_blocks}")
-    f = f if isinstance(f, torch.Tensor) else torch.from_numpy(
-        np.ascontiguousarray(f))
+    if home is not None and ring.device != home:
+        raise ValueError(f"the field lies on {home} and the ring on "
+                         f"{ring.device}; pass device= to move it")
     f_slab = f.reshape(n_blocks, cfg.nv_local).to(
         device=ring.device, dtype=torch.float32)[ring.blocks()]
     out = front_device_fn(cfg, ring, f_slab, stats)

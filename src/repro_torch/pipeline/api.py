@@ -31,7 +31,9 @@ the vertices the diagram touches.
 distributed back-end: the self-correcting pairing rounds for D0 and the
 dual diagram, and the token-based D1 over ``n_blocks`` z-slabs
 (``repro_torch.distributed``); the ``shardmap`` backend runs the
-distributed front-end's gradient step over those blocks.  The diagrams
+distributed front-end's gradient step over those blocks, across the
+ranks of a process group where one is initialised (one rank per card
+under ``torchrun``; ``examples/distributed_pd_torch.py``).  The diagrams
 equal the sequential ones.
 """
 
@@ -112,7 +114,13 @@ class PersistencePipeline:
     anticipation, budget : the token D1's knobs (distributed only).
     device : torch device; ``None`` means ``"cuda"``, which must be
         available (pass ``device="cpu"`` to run on the CPU, where the
-        kernel backends use the plain PyTorch pairing).
+        kernel backends use the plain PyTorch pairing).  Under a
+        ``torch.distributed`` process group (NCCL or gloo) the
+        ``shardmap`` backend runs this rank's blocks of a ``GroupRing``
+        (``distributed.block_ring``): every rank of the group must call
+        ``run`` with it, and every rank gets the whole result.  The
+        group's device must be this one, else the run raises (nothing is
+        copied to it).
     plan_cache : cache of the per-grid scatter offset tables (the
         process-wide :func:`default_plan_cache` if None).
     """

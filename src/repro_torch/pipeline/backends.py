@@ -15,10 +15,11 @@ n_blocks=n)``):
 - ``prepass``  — the (nv, 27) gather + the prepass CUDA kernel;
 - ``torch``    — the same gather + the plain PyTorch pairing;
 - ``shardmap`` — the distributed front-end's gradient step
-  (``distributed.shardmap_pipeline.halo_gradient``) over a
-  :class:`~repro_torch.distributed.LocalRing` of ``n_blocks`` z-slabs on
-  the orders' device: each block exchanges its boundary planes and runs
-  the fused kernel's halo entry on its own vertices.
+  (``distributed.shardmap_pipeline.halo_gradient``) over the block ring
+  of ``n_blocks`` z-slabs (``distributed.block_ring``: a ``LocalRing`` on
+  the orders' device, or under a process group this rank's blocks of a
+  ``GroupRing``): each block exchanges its boundary planes and runs the
+  fused kernel's halo entry on its own vertices.
 
 On the CPU the two kernel backends run the plain version (see
 ``kernels.lower_star``).  Sandwich back-ends: ``torch``, the tensor port
@@ -165,18 +166,24 @@ def _rows_np(grid: Grid, orders: torch.Tensor):
 
 
 def _rows_shardmap(grid: Grid, orders: torch.Tensor, n_blocks: int = 1):
-    """Rows of each field from ``halo_gradient`` over a LocalRing of
-    ``n_blocks`` z-slabs (dense vertex orders: the fused kernel's int32
-    halo entry)."""
-    from repro_torch.distributed import FrontConfig, LocalRing
+    """Rows of each field from ``halo_gradient`` over ``block_ring(
+    n_blocks, orders.device)`` (dense vertex orders: the fused kernel's
+    int32 halo entry).  Under a process group each rank runs its own
+    blocks' slabs of the order, and ``gather_blocks`` hands every rank all
+    the rows, so the rest of the pipeline runs on every rank as the
+    reference runs it on its one host: 153 B per vertex per rank (2.57 GB
+    at 256^3) beside the rank's own blocks' rows."""
+    from repro_torch.distributed import FrontConfig, block_ring
     from repro_torch.distributed.shardmap_pipeline import halo_gradient
     cfg = FrontConfig(grid.dims, n_blocks)
     cfg.nz_local                      # eager divisibility check
-    ring = LocalRing(n_blocks, orders.device)
+    ring = block_ring(n_blocks, orders.device)
+    mine = ring.blocks()
     out = []
     for o in orders.reshape(-1, grid.nv):
-        _, rows = halo_gradient(cfg, ring, o.long().reshape(n_blocks, -1))
-        out.append(tuple(r.flatten(0, 1) for r in rows))
+        _, rows = halo_gradient(cfg, ring,
+                                o.long().reshape(n_blocks, -1)[mine])
+        out.append(tuple(ring.gather_blocks(r).flatten(0, 1) for r in rows))
     return tuple(torch.cat(p) for p in zip(*out))
 
 

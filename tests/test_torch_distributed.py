@@ -10,6 +10,13 @@ against the JAX package:
   ``run_front`` on 4 forced host devices (``torch_distributed_ref.py``);
   ``overlap_comm`` on and off equal; a gloo ``GroupRing`` of 2 processes
   equal to the ``LocalRing`` (``torch_distributed_group.py``);
+- the ring across ranks (gloo, ``torch_distributed_group.py``): every
+  ``GroupRing`` collective equal to ``LocalRing``'s at (world, blocks
+  per rank) (2, 1), (2, 2) and (4, 1); every ``torch_distributed_ref.py``
+  case over 2 ranks x 2 blocks equal to the reference's 4 devices, on
+  every rank; the ``shardmap`` pipeline over 2 x 2 byte-equal to the JAX
+  package on every rank; ``block_ring``'s choice and its errors;
+  ``examples/distributed_pd_torch.py`` under ``torchrun`` with 2 ranks;
 - ``pairing_fixpoint`` and ``d1_distributed``: pairs and every statistic
   equal to the reference's on ``tests/test_ddms.py``'s matrix;
 - the pipeline: payloads byte-equal to the reference's
@@ -49,7 +56,8 @@ from repro_torch.core.extremum_graph import ExtremumGraph
 from repro_torch.core.gradient import gradient_from_numpy
 from repro_torch.core.grid import Grid
 from repro_torch.distributed import (CritCapacityError, FrontConfig,
-                                     LocalRing, front_triplets, run_front)
+                                     LocalRing, block_ring, front_triplets,
+                                     run_front)
 from repro_torch.distributed.d1_rounds import d1_distributed
 from repro_torch.distributed.pairing_rounds import pairing_fixpoint
 from repro_torch.kernels.sandwich import pair_extrema_saddles_kernel
@@ -61,7 +69,7 @@ sys.path.insert(0, HERE)
 import torch_distributed_group as GROUP  # noqa: E402
 import torch_distributed_ref as REF  # noqa: E402
 
-BACKEND = {"jax": "torch", "pallas": "prepass", "fused": "fused"}
+BACKEND = GROUP.BACKEND
 COUNTERS = ("d0_rounds", "d0_corrections", "d_top_rounds", "d1_rounds",
             "d1_token_hops", "d1_expansions", "d1_merges", "d1_steals",
             "n_blocks")
@@ -207,23 +215,176 @@ def test_overlap_comm_gives_identical_outputs(backend):
     assert stats["sort_bucket_peak"] <= stats["sort_percap"]
 
 
-def test_group_ring_equals_local_ring(tmp_path):
-    out = str(tmp_path / "group.pt")
-    r = subprocess.run([sys.executable, os.path.join(
-        HERE, "torch_distributed_group.py"), out], capture_output=True,
-        text=True, timeout=300, env=_env())
-    assert r.returncode == 0, r.stderr[-4000:]
-    got = torch.load(out)
+# (world, blocks per rank) -> the jobs of torch_distributed_group.py
+GROUP_RUNS = {(2, 1): ("front", "ring"), (2, 2): ("ring", "ref", "pipeline"),
+              (4, 1): ("ring",)}
+
+
+@pytest.fixture(scope="module")
+def group_run(tmp_path_factory):
+    """Every rank's results of one gloo run per (world, blocks per rank),
+    made once per module."""
+    done = {}
+
+    def get(world, blocks):
+        if (world, blocks) not in done:
+            out = str(tmp_path_factory.mktemp("group") / "out.pt")
+            r = subprocess.run(
+                [sys.executable, os.path.join(HERE,
+                                              "torch_distributed_group.py"),
+                 out, "--world", str(world), "--blocks", str(blocks),
+                 "--jobs", *GROUP_RUNS[world, blocks]],
+                capture_output=True, text=True, timeout=300, env=_env())
+            assert r.returncode == 0, r.stderr[-4000:]
+            done[world, blocks] = torch.load(out)["ranks"]
+        return done[world, blocks]
+    return get
+
+
+def test_group_ring_equals_local_ring(group_run):
+    ranks = group_run(GROUP.WORLD, 1)
     for name, (dims, seed, kw) in GROUP.CASES.items():
         _, want = run_front(dims, GROUP.case_field(dims, seed), GROUP.WORLD,
                             device="cpu", **kw)
-        for k, v in want.items():
-            assert v.dtype == got[name][k].dtype, (name, k)
-            assert torch.equal(v, got[name][k]), (name, k)
+        for got in ranks:
+            for k, v in want.items():
+                assert v.dtype == got[name][k].dtype, (name, k)
+                assert torch.equal(v, got[name][k]), (name, k)
+
+
+@pytest.mark.parametrize("world,blocks", sorted(GROUP_RUNS))
+def test_group_ring_collectives_equal_local_ring(group_run, world, blocks):
+    """Shifts up and down with and without wrap (and started async),
+    all_gather, all_to_all, psum, pmax, gather_blocks and blocks of a
+    GroupRing with ``blocks`` blocks per rank: each rank's share of the
+    LocalRing's results over all ``world * blocks`` blocks."""
+    nb = world * blocks
+    want = GROUP.ring_ops(LocalRing(nb, device="cpu"), GROUP.ring_inputs(nb))
+    ranks = group_run(world, blocks)
+    assert len(ranks) == world
+    for r, got in enumerate(ranks):
+        assert got["ring_type"] == "GroupRing"
+        assert set(got["ring"]) == set(want)
+        for k, w in want.items():
+            if k != "gather_blocks_x":
+                w = w[r * blocks:(r + 1) * blocks]
+            g = got["ring"][k]
+            assert g.dtype == w.dtype and torch.equal(g, w), (r, k)
+
+
+@pytest.mark.parametrize("name", sorted(REF.CASES))
+def test_group_front_equals_reference_arrays(reference_front, group_run,
+                                             name):
+    """run_front over 2 gloo ranks x 2 blocks (the default ring of a
+    process group) equals the reference's 4 devices on every rank."""
+    ranks = group_run(2, 2)
+    keys = {k.split("/", 1)[1] for k in reference_front.files
+            if k.startswith(name + "/")}
+    for got in ranks:
+        out = got["ref_" + name]
+        assert keys == set(out)
+        for k, v in out.items():
+            want = reference_front[f"{name}/{k}"]
+            assert v.numpy().dtype == want.dtype, k
+            assert v.shape == want.shape and np.array_equal(v.numpy(),
+                                                            want), k
+
+
+@pytest.mark.parametrize("distributed", [False, True])
+def test_group_shardmap_pipeline_equals_reference(group_run, distributed):
+    """The shardmap pipeline over 2 gloo ranks x 2 blocks: every rank's
+    payload byte-equal to the JAX package's (and its counters)."""
+    dims = GROUP.PIPELINE_DIMS
+    kw = dict(n_blocks=4, distributed=True) if distributed else {}
+    want = JPipeline(backend="jax", **kw).run(
+        JRequest(field=GROUP.pipeline_field(), grid=JG.Grid.of(*dims)))
+    for got in group_run(2, 2):
+        assert got[f"payload_{distributed}"] == want.to_bytes()
+        if distributed:
+            assert {k: got["stats_True"].get(k) for k in COUNTERS} == \
+                _counters(want)
+
+
+def test_group_block_count_and_device_errors(group_run):
+    """Over 2 ranks, 3 blocks raise ValueError naming both numbers (from
+    block_ring and from run_front), and a device that is not the
+    group's raises (from block_ring, from a shardmap pipeline's run, and
+    from run_front given no device= and a field off the host), with no
+    copy to or from it."""
+    for got in group_run(2, 2):
+        for key in ("indivisible", "indivisible_front"):
+            assert got[key] is not None and "n_blocks=3" in got[key] \
+                and "2 ranks" in got[key], got[key]
+        for key in ("wrong_device", "wrong_device_pipeline",
+                    "field_off_host"):
+            assert got[key] is not None and "not on meta" in got[key]
+
+
+def test_block_ring_without_a_real_group():
+    """No group: a LocalRing, on the card unless asked (raising where
+    there is no card); the dry-run's fake group does not count as
+    one."""
+    from repro_torch.launch.dryrun import _fake_world
+    ring = block_ring(4, "cpu")
+    assert isinstance(ring, LocalRing) and ring.device.type == "cpu"
+    if torch.cuda.is_available():
+        for ring in (block_ring(4), LocalRing(4)):
+            assert isinstance(ring, LocalRing)
+            assert ring.device == torch.device(
+                "cuda", torch.cuda.current_device())
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            block_ring(4)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            LocalRing(4)
+    with _fake_world(4):
+        assert torch.distributed.get_backend() == "fake"
+        assert isinstance(block_ring(4, "cpu"), LocalRing)
+
+
+@pytest.mark.parametrize("backend", ["gloo", "cpu:gloo",
+                                     "cpu:gloo,cuda:gloo"])
+def test_block_ring_takes_any_real_group(tmp_path, backend):
+    """Any initialised group, device-mapped backends too, gives a
+    GroupRing (here one rank holding all 4 blocks, on the CPU: gloo's
+    CUDA tensors do not count), whose collectives equal the LocalRing's;
+    a device the group's ring does not run on raises, with no copy."""
+    import torch.distributed as dist
+    dist.init_process_group(backend, init_method=f"file://{tmp_path}/rv",
+                            rank=0, world_size=1)
+    try:
+        ring = block_ring(4)
+        assert type(ring).__name__ == "GroupRing" and ring.bl == 4
+        assert ring.device == torch.device("cpu")
+        inp = GROUP.ring_inputs(4)
+        got = GROUP.ring_ops(ring, inp)
+        want = GROUP.ring_ops(LocalRing(4, device="cpu"), inp)
+        for k, w in want.items():
+            assert got[k].dtype == w.dtype and torch.equal(got[k], w), k
+        for dev in ("cuda", "meta"):
+            with pytest.raises(ValueError, match=f"not on {dev}"):
+                block_ring(4, dev)
+    finally:
+        dist.destroy_process_group()
+    assert isinstance(block_ring(4, "cpu"), LocalRing)
+
+
+def test_distributed_pd_example_over_torchrun(tmp_path):
+    """``examples/distributed_pd_torch.py`` at the reference's default
+    8 x 8 x 32 over 2 gloo ranks: DDMS == DMS and equal payloads on
+    both ranks."""
+    script = os.path.join(HERE, "..", "examples", "distributed_pd_torch.py")
+    r = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node=2", script, "--device", "cpu"],
+        capture_output=True, text=True, timeout=300, env=_env(),
+        cwd=str(tmp_path))
+    assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-4000:])
+    assert "DDMS == DMS: True; every rank's payload equal: True" in r.stdout
 
 
 def test_local_ring_collectives():
-    ring = LocalRing(3)
+    ring = LocalRing(3, device="cpu")
     x = torch.arange(6).reshape(3, 2)
     assert ring.shift(x, up=True).tolist() == [[0, 0], [0, 1], [2, 3]]
     assert ring.shift(x, up=False, wrap=True).tolist() == \
