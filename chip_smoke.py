@@ -3,8 +3,10 @@
 
     python3 chip_smoke.py                  # from the repository root, one GPU
     python3 chip_smoke.py --timing-of DIR  # the timing phase alone, on DIR
-    python3 chip_smoke.py --group          # build, dist and group alone
-                                           # (on 2-4 GPUs: one rank each)
+    python3 chip_smoke.py --group          # build, stream's multi-card
+                                           # part, dist and group alone
+                                           # (on 2-4 GPUs: shards and
+                                           # ranks over the cards)
 
 Phases (one line each; any failing phase makes the script exit non-zero):
 
@@ -56,7 +58,22 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               to ``stream_front``'s); and out of core, ``stream_front``
               over ``FunctionSource.synthetic("random", 512^3)`` with the
               default 64 MiB chunk budget (critical counts with Euler
-              characteristic 1).  Nothing here is caught.
+              characteristic 1).  On a host with two cards or more, shard
+              s runs on card s % N: one child process per card count (1,
+              2 and, with four cards, 4; CUDA_VISIBLE_DEVICES names the
+              first cards) logs the halo entry's attributes on each card,
+              repeats the two 4-shard runs above on 2 or more cards
+              (payload, gradient and keys equal to the one-card runs),
+              and times a ``MemmapSource`` of ``random`` 512^3 (512 MiB
+              written once, its page-cache share logged) through 4 shards
+              with the 64 MiB budget: wall, load, compute, scatter and
+              halo seconds, the overlap fraction, each card's peak, the
+              bytes between cards, the largest cube whose gradient and
+              keys fit the home card; every run with each shard on the
+              card ``per_shard`` names, at most two chunks resident a
+              shard and the halo entry once per chunk, and the critical
+              counts equal across card counts.  With one card a line says
+              the multi-card part did not run.  Nothing here is caught.
 5. dist     — the distributed engines on the one card, every block on
               it (``LocalRing``): ``run_front`` on ``isabel`` 256^3 in 8
               blocks through the halo entry, with the sample sort (int32
@@ -91,10 +108,17 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               the group's runs and read just after (halo entry 32, no
               other kernel, the plain version never); the group is
               destroyed before phase 13 opens its fake one.  On a host
-              with two cards or more, one NCCL rank per card (2 or 4, 8
-              blocks) repeats (a) and (c): rank 0's outputs equal to a
+              with two cards or more, one rank per card repeats (a) and
+              (c) with 8 blocks: 2 NCCL ranks (4 blocks each), 4 NCCL
+              ranks on four cards, and 2 ranks of a device-mapped
+              ``cpu:gloo,cuda:nccl`` group; rank 0's outputs equal to a
               ``LocalRing`` run on its card, every other rank's equal to
-              rank 0's by a SHA-256 of each array; with one card a line
+              rank 0's by a SHA-256 of each array, and every group's equal
+              to the 2 NCCL ranks'.  The 2-rank groups also hold
+              ``allreduce_compressed`` over NCCL to gloo's result (a gloo
+              subgroup, the device-mapped group's CPU side) bit for bit.
+              Then ``examples/distributed_pd_torch.py`` under ``torchrun``
+              on 2 cards (NCCL, 32^3, ``--stream``).  With one card a line
               says so.
 7. approx   — approximation at ``isabel`` 256^3: the ``Hierarchy`` on
               the card (levels, dims and bounds equal to the CPU's; the
@@ -206,7 +230,9 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               bytes within PLAN_DYNAMIC_RTOL, the counted FLOPs beside the
               profiler's device ms per step; a smoke step counted on fake
               CUDA and CPU tensors (equal FLOPs); the DDMS plan of
-              [dist]'s ``run_front`` beside its peak and its tet passes'
+              [dist]'s ``run_front`` (at its sort slack) within
+              PLAN_PEAK_RTOL of that run's own peak (less what lay on the
+              card before it, logged apart) and beside its tet passes'
               seconds; and one block of the paper's 2048 x 1920 x 1536
               field in 256 blocks (6 owned planes and 2 ghosts, a
               generated stand-in) through the halo entry's int32
@@ -227,6 +253,10 @@ Phases (one line each; any failing phase makes the script exit non-zero):
 The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script prints no result and exits non-zero.
+
+``--group`` runs only the build, phase 4's multi-card part, phase 5 (and
+phase 13's DDMS peak held to it) and phase 6 (every part even where one before it failed; then it exits 1
+naming them); it prints no result lines.
 
 ``--timing-of DIR`` runs only phase 14 (without the plain version) on the
 port in another tree DIR, for instance the parent commit unpacked with
@@ -755,8 +785,10 @@ def _same_front(a, b, what):
 
 def phase_stream(fields, results):
     """The streamed path at full size: ``diagram_stream`` on ``isabel``
-    256^3, the sharded engine, and an out-of-core 512^3 front-end.
-    Returns the halo entry's launches in the ``diagram_stream`` run."""
+    256^3, the sharded engine, and an out-of-core 512^3 front-end; then
+    the multi-card part (:func:`stream_cards`; a line says it did not run
+    on one card).  Returns the halo entry's launches in the
+    ``diagram_stream`` run and in the multi-card part."""
     import torch
     from repro_torch.core.gradient import euler_characteristic
     from repro_torch.core.grid import Grid
@@ -844,7 +876,263 @@ def phase_stream(fields, results):
         raise AssertionError(f"512^3 critical Euler characteristic {chi}")
     del out
     torch.cuda.empty_cache()
-    return halo_launches
+    return halo_launches, stream_cards(smi)
+
+
+# [stream]'s multi-card part: the out-of-core field, a MemmapSource of
+# STREAM_BIG^3 `random` (512 MiB of f32) written once, through 4 shards
+# with the default 64 MiB chunk budget, timed on 1, 2 and 4 cards
+STREAM_BIG = 512
+STREAM_SHARDS = 4
+# the 4-shard runs held to one card's: (edge, chunk_z) of `random` end to
+# end and of the `isabel` front-end, as [stream] runs them on one card
+STREAM_RUN = (128, 16)
+STREAM_FRONT = (256, 32)
+
+
+def _visible(k):
+    """CUDA_VISIBLE_DEVICES naming the first ``k`` of this process's
+    cards."""
+    have = os.environ.get("CUDA_VISIBLE_DEVICES")
+    ids = have.split(",") if have else [str(i) for i in range(k)]
+    return ",".join(ids[:k])
+
+
+def _page_cache_share(path):
+    """The share of ``path``'s pages in the page cache (``mincore`` over
+    a read-only map of the file)."""
+    import ctypes
+    import mmap
+    import numpy as np
+    size = os.path.getsize(path)
+    arr = np.memmap(path, dtype=np.uint8, mode="r")
+    vec = (ctypes.c_ubyte * ((size + mmap.PAGESIZE - 1)
+                             // mmap.PAGESIZE))()
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.mincore(ctypes.c_void_p(arr.ctypes.data),
+                    ctypes.c_size_t(size), vec) != 0:
+        raise OSError(ctypes.get_errno(), "mincore failed")
+    del arr
+    return float((np.frombuffer(vec, np.uint8) & 1).mean())
+
+
+def _reset_cards(n):
+    import torch
+    for d in range(n):
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+
+
+def _card_peaks(n):
+    import torch
+    return {f"cuda:{d}": torch.cuda.max_memory_allocated(d)
+            for d in range(n)}
+
+
+def _check_shards(rep, cards, what):
+    """Shard ``s`` on card ``s % N`` as ``per_shard`` names it, each with
+    at most two ghost-extended chunks of field resident."""
+    got = [st["device"] for st in rep.per_shard]
+    want = [f"cuda:{s % cards}" for s in range(rep.n_shards)]
+    if got != want:
+        raise AssertionError(f"{what}: shards on {got}, want {want}")
+    for st in rep.per_shard:
+        if st["peak_resident_field_bytes"] > 2 * st["max_chunk_bytes"]:
+            raise AssertionError(f"{what}: shard {st['shard']} held more "
+                                 f"than two chunks of field")
+    return got
+
+
+def _largest_cube(overhead):
+    """The largest n whose n^3 gradient and keys (``alloc_gradient``'s
+    dtypes, sized on the meta device) and ``overhead`` fit card 0."""
+    import torch
+    from repro_torch.core import gradient as GR
+    from repro_torch.core.grid import Grid
+    total = torch.cuda.get_device_properties(0).total_memory
+
+    def need(n):
+        g = Grid.of(n, n, n)
+        gf = GR.alloc_gradient(g, "meta")
+        return sum(t.numel() * t.element_size()
+                   for d in (gf.pair_up, gf.pair_down, gf.crit)
+                   for t in d.values()) + 8 * g.nv + overhead
+    lo, hi = 1, 4096
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if need(mid) <= total else (lo, mid - 1)
+    return dict(n=lo, bytes=need(lo), card_bytes=total)
+
+
+def stream_cards_child(path, out_path):
+    """[stream]'s multi-card part in one process, on the cards that
+    CUDA_VISIBLE_DEVICES leaves it (N of them).  Where N >= 2, the 4-shard
+    runs that [stream] holds on one card: ``random`` 128^3 end to end
+    (payload equal to the in-memory run) and ``isabel`` 256^3 front-end
+    (gradient and keys equal to ``stream_front``'s); then the 512^3
+    MemmapSource at ``path`` through 4 shards, timed.  Every run: shard
+    ``s`` on card ``s % N`` (``per_shard``), at most two chunks resident
+    a shard, each card's peak, the halo entry once per chunk.  Writes the
+    launches, critical counts and seconds to ``out_path``."""
+    import torch
+    from repro_torch.core.gradient import euler_characteristic
+    from repro_torch.core.grid import Grid
+    from repro_torch.fields.generators import make_field
+    from repro_torch.kernels import build
+    from repro_torch.pipeline import PersistencePipeline, TopoRequest
+    from repro_torch.stream import (ArraySource, MemmapSource,
+                                    sharded_stream_front, stream_front)
+    from repro_torch.kernels import lower_star as LS
+    build.build_all()
+    cards = torch.cuda.device_count()
+    smi = nvidia_smi_line()
+    # the CUDA module loads per card: the attribute query on each
+    for d in range(cards):
+        with torch.cuda.device(d):
+            log("stream", card=f"cuda:{d}", name=torch.cuda.get_device_name(d),
+                fused_halo_i64=LS.kernel_attrs("fused_halo", torch.int64))
+    halo = 0
+    if cards >= 2:
+        e, cz = STREAM_RUN
+        dims = (e, e, e)
+        rf = make_field("random", dims, seed=SEED)
+        want = PersistencePipeline().run(
+            TopoRequest(field=rf, grid=Grid.of(*dims))).to_bytes()
+        _reset_cards(cards)
+        _zero_counts()
+        t0 = time.perf_counter()
+        res = PersistencePipeline().run(TopoRequest(
+            field=ArraySource(rf.reshape(e, e, e)), stream=True,
+            chunk_z=cz, n_blocks=STREAM_SHARDS, distributed=False))
+        secs = time.perf_counter() - t0
+        launches, _ = _read_counts(res.stream.n_chunks,
+                                   f"sharded run on {cards} cards")
+        halo += launches["fused_halo"]
+        on = _check_shards(res.stream, cards, f"sharded random {e}^3")
+        same = res.to_bytes() == want
+        log("stream", cards=cards, path="sharded x4 run", field="random",
+            dims=dims, seconds=round(secs, 3), shard_devices=on,
+            payload_equals_in_memory=same, card_peaks=_card_peaks(cards),
+            launches=launches, report=_report_line(res.stream),
+            link_bytes=[st["link_bytes"] for st in res.stream.per_shard],
+            plan=res.plan.describe(), smi=smi)
+        if not same:
+            raise AssertionError(f"sharded random {e}^3 on {cards} cards "
+                                 f"differs from in-memory")
+        del res
+        e, cz = STREAM_FRONT
+        g = (e, e, e)
+        src = ArraySource(make_field("isabel", g, seed=SEED)
+                          .reshape(e, e, e))
+        one = stream_front(src, chunk_z=cz)
+        torch.cuda.synchronize()
+        _reset_cards(cards)
+        _zero_counts()
+        t0 = time.perf_counter()
+        four = sharded_stream_front(src, STREAM_SHARDS, chunk_z=cz)
+        secs = time.perf_counter() - t0
+        launches, _ = _read_counts(four.report.n_chunks,
+                                   f"sharded front-end on {cards} cards")
+        halo += launches["fused_halo"]
+        on = _check_shards(four.report, cards, f"sharded isabel {e}^3")
+        _same_front(four, one, f"sharded isabel {e}^3 on {cards} cards")
+        log("stream", cards=cards, path="sharded_stream_front x4",
+            field="isabel", dims=g, seconds=round(secs, 3),
+            shard_devices=on, equals_stream_front=True,
+            card_peaks=_card_peaks(cards), launches=launches,
+            report=_report_line(four.report),
+            link_bytes=[st["link_bytes"] for st in four.report.per_shard],
+            smi=smi)
+        del one, four, src
+        torch.cuda.empty_cache()
+
+    n = STREAM_BIG
+    src = MemmapSource(path, (n, n, n))
+    cached = _page_cache_share(path)
+    _reset_cards(cards)
+    _zero_counts()
+    t0 = time.perf_counter()
+    out = sharded_stream_front(src, STREAM_SHARDS, chunk_budget=64 << 20)
+    secs = time.perf_counter() - t0
+    launches, _ = _read_counts(out.report.n_chunks,
+                               f"out-of-core front-end on {cards} cards")
+    halo += launches["fused_halo"]
+    on = _check_shards(out.report, cards, f"MemmapSource {n}^3")
+    chi = euler_characteristic(out.gf)
+    crit = out.gf.n_critical()
+    peaks = _card_peaks(cards)
+    home = sum(t.numel() * t.element_size()
+               for d in (out.gf.pair_up, out.gf.pair_down, out.gf.crit)
+               for t in d.values()) + out.keys.numel() * 8
+    fits = _largest_cube(peaks["cuda:0"] - home)
+    rep = out.report
+    log("stream", cards=cards, path=f"sharded_stream_front x{STREAM_SHARDS} "
+        "out of core", source="MemmapSource", field="random", dims=(n,) * 3,
+        page_cache_share=cached, seconds=round(secs, 3), critical=crit,
+        euler=chi, shard_devices=on, card_peaks=peaks,
+        home_peak_bytes=peaks["cuda:0"], home_output_bytes=home,
+        home_bytes_per_vertex=home / n ** 3, largest_cube_on_home=fits,
+        launches=launches, report=_report_line(rep),
+        per_shard=[{k: st[k] for k in (
+            "shard", "device", "n_chunks", "load_s", "compute_s",
+            "scatter_s", "comm_s", "comm_hidden_s", "wall_s", "link_bytes",
+            "peak_device_bytes")} for st in rep.per_shard], smi=smi)
+    if chi != 1:
+        raise AssertionError(f"{n}^3 on {cards} cards: critical Euler "
+                             f"characteristic {chi}")
+    with open(out_path, "w") as fh:
+        json.dump(dict(cards=cards, halo_launches=halo,
+                       critical={str(k): v for k, v in crit.items()},
+                       wall_s=rep.wall_s, seconds=secs), fh)
+    return 0
+
+
+def stream_cards(smi):
+    """[stream]'s multi-card part: with two cards or more, one child
+    process per card count (1, 2 and, with four cards, 4; the first cards
+    each time), each running :func:`stream_cards_child` on the same
+    MemmapSource file; their critical counts must agree.  With one card a
+    line says it did not run.  Returns the halo launches."""
+    import tempfile
+    import torch
+    from repro_torch.fields.generators import make_field
+    from repro_torch.stream import MemmapSource
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log("stream", cards=cards, multi_card="not run: one card, every "
+            "shard on it (the checks above)")
+        return 0
+    counts = [1, 2] + ([4] if cards >= 4 else [])
+    n = STREAM_BIG
+    halo, recs = 0, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, f"random{n}.f32")
+        t0 = time.perf_counter()
+        MemmapSource.write(path, make_field("random", (n, n, n), seed=SEED)
+                           .reshape(n, n, n))
+        log("stream", memmap=path, bytes=os.path.getsize(path),
+            write_s=round(time.perf_counter() - t0, 3),
+            page_cache_share=_page_cache_share(path))
+        for k in counts:
+            out = os.path.join(tmp, f"cards{k}.json")
+            t0 = time.perf_counter()
+            subprocess.run(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--stream-cards-child", path, out], check=True,
+                env=dict(os.environ, CUDA_VISIBLE_DEVICES=_visible(k)))
+            with open(out) as fh:
+                recs[k] = json.load(fh)
+            recs[k]["process_s"] = time.perf_counter() - t0
+            halo += recs[k]["halo_launches"]
+    same = all(r["critical"] == recs[1]["critical"] for r in recs.values())
+    log("stream", multi_card=counts, critical_equal=same,
+        wall_s={k: r["wall_s"] for k, r in recs.items()},
+        process_s={k: round(r["process_s"], 3) for k, r in recs.items()},
+        halo_launches=halo, smi=smi)
+    if not same:
+        raise AssertionError(f"{n}^3 critical counts differ across card "
+                             f"counts: {recs}")
+    return halo
 
 
 def _triplet_rows(saddles, t0, t1):
@@ -917,12 +1205,17 @@ def _run_front_logged(what, dims, f, n_blocks, **kw):
     from repro_torch.distributed import run_front
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    # what lies on the card before the call (the whole field, [dist]'s
+    # oracles and references) is outside the run's peak
+    base = torch.cuda.memory_allocated()
     stats = {}
     t0 = time.perf_counter()
     cfg, out = run_front(dims, f, n_blocks, stats=stats, **kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     stats["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    stats["baseline_device_bytes"] = base
+    stats["run_peak_bytes"] = stats["peak_device_bytes"] - base
     log("dist", run_front=what, dims=dims, blocks=n_blocks,
         seconds=round(secs, 4),
         steps={k: round(v, 4) for k, v in stats["steps"].items()},
@@ -932,6 +1225,7 @@ def _run_front_logged(what, dims, f, n_blocks, **kw):
         buffers=stats["buffers"], crit_capacity=cfg.crit_capacity,
         crit_peak=int(out["crit_peak"]),
         peak_device_bytes=stats["peak_device_bytes"],
+        baseline_device_bytes=base, run_peak_bytes=stats["run_peak_bytes"],
         smi=nvidia_smi_line())
     return out, stats, secs
 
@@ -1151,15 +1445,47 @@ def _digest(out):
             for k, v in out.items()}
 
 
+def _allreduce_check(rank, backend):
+    """``allreduce_compressed`` over NCCL (CUDA tensors, the default
+    group) against gloo's result (CPU tensors: a gloo subgroup, or the CPU
+    side of a device-mapped group) on the same seeded gradients and
+    residuals: the mean and the new residual equal bit for bit."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.train.compression import allreduce_compressed
+    gen = torch.Generator().manual_seed(SEED + rank)
+    g = {"b": torch.randn(4099, generator=gen),
+         "w": torch.randn(512, 384, generator=gen)}
+    r = {k: 1e-3 * torch.randn(v.shape, generator=gen) for k, v in g.items()}
+    gloo = dist.new_group(backend="gloo") if backend == "nccl" else None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got, got_r = allreduce_compressed({k: v.cuda() for k, v in g.items()},
+                                      {k: v.cuda() for k, v in r.items()})
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want, want_r = allreduce_compressed(g, r, group=gloo)
+    if gloo is not None:
+        dist.destroy_process_group(gloo)
+    err = max(float((got[k].cpu() - want[k]).abs().max()) for k in g)
+    same = all(torch.equal(got[k].cpu(), want[k])
+               and torch.equal(got_r[k].cpu(), want_r[k]) for k in g)
+    return dict(equal=same, max_abs_err=err, seconds=secs,
+                gloo="subgroup" if gloo is not None else "device-mapped")
+
+
 def _group_rank(rank, world, init, root, field, dims, nb, slack, n_small,
-                want_small, out_dir):
-    """One NCCL rank of [group]'s multi-card case on card ``rank``:
-    (a) ``run_front`` on ``field`` (``dims``) over the group, each output
-    held on rank 0 against a LocalRing run on its card (the sample-sorted
-    run twice, the repeat timed apart), and (c) the
+                want_small, out_dir, backend="nccl", allreduce=False):
+    """One rank of [group]'s multi-card case on card ``rank``, in a
+    ``backend`` group (``nccl``, or the device-mapped ``cpu:gloo,
+    cuda:nccl``): (a) ``run_front`` on ``field`` (``dims``) over the
+    group, each output held on rank 0 against a LocalRing run on its card
+    (the sample-sorted run twice, the repeat timed apart), and (c) the
     ``distributed=True`` payload at ``n_small``^3 equal to ``want_small``
-    (the run without a group).  Writes its seconds, launches and the
-    digests of its (a) outputs to ``out_dir/rank<r>.json``."""
+    (the run without a group); with ``allreduce``, also
+    :func:`_allreduce_check`.  Writes its seconds, launches, the digests
+    of its (a) outputs and the all-reduce's result to
+    ``out_dir/rank<r>.json``."""
     sys.path.insert(0, os.path.join(root, "src"))
     import torch
     import torch.distributed as dist
@@ -1169,7 +1495,7 @@ def _group_rank(rank, world, init, root, field, dims, nb, slack, n_small,
     from repro_torch.kernels import lower_star as LS
     from repro_torch.pipeline import TopoRequest
     torch.cuda.set_device(rank)
-    dist.init_process_group("nccl", init_method=init, rank=rank,
+    dist.init_process_group(backend, init_method=init, rank=rank,
                             world_size=world)
     try:
         f = torch.from_numpy(field).cuda()
@@ -1207,27 +1533,28 @@ def _group_rank(rank, world, init, root, field, dims, nb, slack, n_small,
                 _, want = run_front(dims, f, nb, ring=LocalRing(nb), **kw)
                 _equal_outputs(out, want, f"{world} ranks, {kind}")
                 del want
+        red = _allreduce_check(rank, backend) if allreduce else None
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
             json.dump(dict(seconds=secs, launches=launches,
-                           device=str(ring.device), digests=digests), fh)
+                           device=str(ring.device), digests=digests,
+                           allreduce=red), fh)
         dist.barrier()
     finally:
         dist.destroy_process_group()
 
 
-def group_ranks(isabel_256, dims, nb, slack, n_small, want_small, smi):
-    """[group]'s multi-card case: one NCCL rank per card (2 or 4 of
-    them), ``nb`` blocks."""
+def group_ranks(isabel_256, dims, nb, slack, n_small, want_small, smi,
+                world, backend="nccl", allreduce=False):
+    """[group]'s multi-card case: one rank per card on ``world`` cards in
+    a ``backend`` group, ``nb`` blocks.  Returns rank 0's digests."""
     import tempfile
-    import torch
     import torch.multiprocessing as mp
-    cards = torch.cuda.device_count()
-    world = 4 if cards >= GROUP_CARDS_MAX else 2
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         mp.spawn(_group_rank, nprocs=world, join=True, args=(
             world, "file://" + os.path.join(tmp, "rendezvous"), HERE,
-            isabel_256, dims, nb, slack, n_small, want_small, tmp))
+            isabel_256, dims, nb, slack, n_small, want_small, tmp, backend,
+            allreduce))
         wall = time.perf_counter() - t0
         recs = []
         for r in range(world):
@@ -1235,10 +1562,10 @@ def group_ranks(isabel_256, dims, nb, slack, n_small, want_small, smi):
                 recs.append(json.load(fh))
     want = {"fused": 0, "prepass": 0, "fused_halo": 4 * (nb // world)}
     for r, rec in enumerate(recs):
-        log("group", ranks=world, rank=r, device=rec["device"],
-            blocks_per_rank=nb // world, seconds={
+        log("group", backend=backend, ranks=world, rank=r,
+            device=rec["device"], blocks_per_rank=nb // world, seconds={
                 k: round(v, 4) for k, v in rec["seconds"].items()},
-            launches=rec["launches"], smi=smi)
+            launches=rec["launches"], allreduce=rec["allreduce"], smi=smi)
         if rec["launches"] != want:
             raise AssertionError(f"rank {r}: launches {rec['launches']}, "
                                  f"want {want}")
@@ -1246,9 +1573,43 @@ def group_ranks(isabel_256, dims, nb, slack, n_small, want_small, smi):
         if rec["digests"] != recs[0]["digests"]:
             raise AssertionError(f"rank {r}: run_front outputs differ from "
                                  f"rank 0's")
-    log("group", ranks=world, cards=cards, run_front_equals_local=True,
-        every_rank_equals_rank0=True, payload_equals_no_group=True,
+        if allreduce and not rec["allreduce"]["equal"]:
+            raise AssertionError(f"{backend} rank {r}: allreduce_compressed "
+                                 f"over NCCL differs from gloo's: "
+                                 f"{rec['allreduce']}")
+    log("group", backend=backend, ranks=world, blocks_per_rank=nb // world,
+        run_front_equals_local=True, every_rank_equals_rank0=True,
+        payload_equals_no_group=True,
+        allreduce_equals_gloo=True if allreduce else None,
         spawn_seconds=round(wall, 3), smi=smi)
+    return recs[0]["digests"]
+
+
+def group_torchrun(smi, nproc=2, dims=(32, 32, 32)):
+    """``examples/distributed_pd_torch.py`` under ``torchrun`` with one
+    NCCL rank per card on ``nproc`` cards (``--stream`` too): it asserts
+    DDMS == DMS and every rank's payload equal, and exits non-zero
+    otherwise."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={nproc}",
+         os.path.join(HERE, "examples", "distributed_pd_torch.py"),
+         "--dims", *map(str, dims), "--stream"],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=_visible(nproc)))
+    secs = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    ok = proc.returncode == 0 and any(
+        "DDMS == DMS: True; every rank's payload equal: True" in ln
+        for ln in lines)
+    log("group", torchrun="examples/distributed_pd_torch.py", ranks=nproc,
+        dims=dims, returncode=proc.returncode, seconds=round(secs, 3),
+        passed=ok, stdout=lines[-12:], smi=smi)
+    if not ok:
+        raise AssertionError(f"torchrun example failed (exit "
+                             f"{proc.returncode}):\n{proc.stdout[-4000:]}"
+                             f"\n{proc.stderr[-4000:]}")
 
 
 def phase_group(isabel_256, local, n=256, n_small=64, nb=8):
@@ -1347,7 +1708,19 @@ def phase_group(isabel_256, local, n=256, n_small=64, nb=8):
     torch.cuda.empty_cache()
     cards = torch.cuda.device_count()
     if cards >= 2:
-        group_ranks(isabel_256, dims, nb, slack, n_small, want_small, smi)
+        args = (isabel_256, dims, nb, slack, n_small, want_small, smi)
+        digests = group_ranks(*args, world=2, allreduce=True)
+        others = {}
+        if cards >= GROUP_CARDS_MAX:
+            others["nccl x4"] = group_ranks(*args, world=GROUP_CARDS_MAX)
+        others["cpu:gloo,cuda:nccl x2"] = group_ranks(
+            *args, world=2, backend="cpu:gloo,cuda:nccl", allreduce=True)
+        for what, d in others.items():
+            if d != digests:
+                raise AssertionError(f"[group] {what}: run_front outputs "
+                                     f"differ from 2 NCCL ranks'")
+        log("group", cards=cards, equal_to_nccl_x2=sorted(others), smi=smi)
+        group_torchrun(smi)
     else:
         log("group", cards=cards, multi_rank="not run: one NCCL rank per "
             "card needs two cards or more")
@@ -3105,6 +3478,8 @@ def phase_train(dev="cuda", archs=None, full=TRAIN_FULL, full_cfgs=None,
 # whose closed form evaluates those planes of the 6-billion-vertex grid in
 # seconds; the rng-backed fields replay their stream from the grid's start
 # (some 6e9 draws, minutes on one core).
+# The same tolerance holds the DDMS plan of [dist]'s run_front (isabel
+# 256^3 in 8 blocks) to that run's own peak.
 PLAN_PEAK_RTOL = 0.10
 # Most of that peak is the static bytes, held to the byte above, so the
 # part the counter models (the peak above the static bytes: activations,
@@ -3223,34 +3598,54 @@ def plan_vs_train(train_recs, cfgs=None):
 
 def plan_vs_dist(front):
     """The DDMS plan of [dist]'s ``run_front`` (``isabel`` 256^3, sample
-    sort, the derived triplet capacity, the ring rotations that run
-    took), printed beside what it measured: per-block and total argument,
-    output and temp bytes against its peak, and the tet passes' bytes
-    (successors + tet ring resolution) over HBM against their seconds:
-    their byte bound beside their time."""
+    sort at the slack that run took, the derived triplet capacity, its
+    ring rotations), held to what it measured: the planned peak (blocks x
+    per-block argument, output and temp) within PLAN_PEAK_RTOL of the
+    run's own peak (``max_memory_allocated`` less what lay on the card
+    before the call: the whole field, [dist]'s oracles and references,
+    logged apart); and the tet passes' bytes (successors + tet ring
+    resolution) over HBM against their seconds: their byte bound beside
+    their time."""
     from repro_torch.launch import dryrun as D
     RL = _roofline()
     nb = front["blocks"]
     rec = D.plan_ddms(front["dims"], {"data": nb}, crit_cap=None,
                       ring_rotations=None,
-                      rotations=front["ring_rotations"])
+                      rotations=front["ring_rotations"],
+                      sort_slack=front["sort_slack"])
     ma, by = rec["memory_analysis"], rec["bytes_detail"]
     tet = nb * (by["successors"] + by["resolution_t"])
     steps = front["steps"]
+    planned = nb * sum(ma.values())
+    run_peak = front["run_peak_bytes"]
+    rel = (planned - run_peak) / run_peak
+    nx, ny, nz = front["dims"]
     log("plan", ddms="isabel", dims=front["dims"], blocks=nb,
+        sort_slack=front["sort_slack"],
         rotations=rec["config"]["rotations"],
         crit_capacity=rec["config"]["crit_capacity"],
         argument_bytes=nb * ma["argument_size_in_bytes"],
         output_bytes=nb * ma["output_size_in_bytes"],
         temp_bytes=nb * ma["temp_size_in_bytes"],
-        planned_peak_bytes=nb * sum(ma.values()),
+        phase_bytes={k: nb * v for k, v in rec["phase_bytes"].items()},
+        planned_peak_bytes=planned, run_peak_bytes=run_peak,
+        peak_rel_err=round(rel, 4), tolerance=PLAN_PEAK_RTOL,
         measured_peak_bytes=front["peak_device_bytes"],
+        # outside the per-block model: what the card held before the
+        # call, the whole f32 field among it; a LocalRing's gathered
+        # outputs are the blocks' own tensors (no copy)
+        outside_model_bytes=front["baseline_device_bytes"],
+        whole_field_bytes=nx * ny * nz * 4, gathered_output_copy_bytes=0,
         bytes_by_pass={k: nb * v for k, v in by.items()},
         tet_pass_bytes=tet,
         tet_bound_ms=tet / RL.HBM_BYTES_PER_S * 1e3,
         successors_s=steps.get("successors"),
         resolution_s=steps.get("resolution"),
         run_front_s=front["seconds"])
+    if abs(rel) > PLAN_PEAK_RTOL:
+        raise AssertionError(f"[plan] run_front: planned peak {planned} vs "
+                             f"the run's {run_peak} ({rel:+.2%}, tolerance "
+                             f"{PLAN_PEAK_RTOL:.0%})")
 
 
 def plan_block(smi, dims=(2048, 1920, 1536), n_blocks=PLAN_BLOCKS,
@@ -3447,13 +3842,36 @@ def time_halo(isabel_256, plain, smi):
 
 
 def group_only():
-    """The build, [dist] and [group] alone: on a host with two cards or
-    more, the quickest check of the multi-card front-end."""
+    """The build, [stream]'s multi-card part, [dist] (with [plan]'s DDMS
+    peak held to it) and [group] alone:
+    on a host with two cards or more, the quickest check of the
+    multi-card paths.  Each part runs even where one before it failed
+    ([group] needs [dist]'s outputs); a failure prints its traceback and
+    the script then exits 1, naming the parts that failed."""
+    import traceback
     from repro_torch.fields.generators import make_field
-    phase_build(nvidia_smi_line())
+    smi = nvidia_smi_line()
+    phase_build(smi)
+    failed = []
+
+    def part(name, fn, *args):
+        try:
+            return fn(*args)
+        except Exception:
+            traceback.print_exc()
+            failed.append(name)
+            log(name, failed=True)
+            return None
+
+    part("stream", stream_cards, smi)
     isabel = make_field("isabel", (256, 256, 256), seed=SEED)
-    _, _, local = phase_dist(isabel)
-    phase_group(isabel, local)
+    dist = part("dist", phase_dist, isabel)
+    if dist is not None:
+        part("plan", plan_vs_dist, dist[1])
+        part("group", phase_group, isabel, dist[2])
+    if failed:
+        log("group_only", failed=failed)
+        return 1
     return 0
 
 
@@ -3479,9 +3897,12 @@ def main(argv):
                     "([timing] fields, no plain version, no result lines); "
                     "to compare two trees, time each in turns in one call")
     ap.add_argument("--group", action="store_true",
-                    help="only build and run [dist] and [group] (one NCCL "
-                    "rank per card where the host has two or more); no "
-                    "result lines")
+                    help="only build and run [stream]'s multi-card part, "
+                    "[dist] and [group] (shards and NCCL ranks over the "
+                    "cards where the host has two or more); no result "
+                    "lines")
+    ap.add_argument("--stream-cards-child", nargs=2, metavar=("FIELD", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     root = os.path.abspath(args.timing_of or HERE)
     if not os.path.isdir(os.path.join(root, "src", "repro_torch")):
@@ -3499,6 +3920,8 @@ def main(argv):
         return 2
     if args.timing_of:
         return time_tree(root)
+    if args.stream_cards_child:
+        return stream_cards_child(*args.stream_cards_child)
     if args.group:
         return group_only()
     t_start = time.perf_counter()
@@ -3513,7 +3936,7 @@ def main(argv):
     halo_err = phase_halo_kernels(isabel)
     launches, fields, results = phase_main(isabel)
     phase_gradient(isabel)
-    halo_launches = phase_stream(fields, results)
+    halo_launches, cards_halo_launches = phase_stream(fields, results)
     dist_launches, front, local = phase_dist(isabel)
     group_launches = phase_group(isabel, local)
     del local
@@ -3546,7 +3969,8 @@ def main(argv):
         "name": "fused_lower_star_halo", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/fused.cu",
         "replaces": "src/repro/kernels/lower_star.py:325",
-        "launches": halo_launches + dist_launches["fused_halo"]
+        "launches": halo_launches + cards_halo_launches
+        + dist_launches["fused_halo"]
         + group_launches["fused_halo"] + oracle_launches["fused_halo"]
         + plan_launches,
         "max_abs_err": halo_err,

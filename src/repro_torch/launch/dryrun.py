@@ -642,21 +642,45 @@ DDMS_FIELDS = {
 
 def ddms_block_bytes(fc, rotations=None):
     """Per-block bytes of ``run_front`` for the FrontConfig ``fc``:
-    {argument, output, temp} (the arrays a block holds) and the bytes its
-    passes move {halo_gradient, successors, resolution_v, resolution_t}.
-    ``rotations`` ({"v": r, "t": r}) overrides ``ring_rotation_count``.
+    {argument, output, temp} (what a block holds at its peak: argument +
+    output + temp), the peak of each phase that can hold it
+    (``phases``), and the bytes its passes move {halo_gradient,
+    successors, resolution_v, resolution_t}.  ``rotations`` ({"v": r,
+    "t": r}) overrides ``ring_rotation_count``.  Per block, with ``n`` =
+    nv_local, ``P`` the plane, ``cap`` the crit capacity and ``C = nb x
+    percap`` the sample sort's slots, ``percap = ceil(sort_slack x n /
+    nb)`` (``order.py``):
 
     - argument: the f32 slab;
     - output: the int64 ranks, status / partner (74 int8 rows each),
       vstat (int8), vpart (int32), the D0 and dual triplet buffers at
-      ``crit_capacity`` (13 int64 words and 2 flags a slot) and the
-      replicated counts (overflow, four critical counts, unresolved, the
-      critical peak);
-    - temp: what the tet resolution holds beside the outputs: the int64
-      halo volume, the block's global ids and their three coordinates, the
-      vertex successor table, the tet table ((nv_local + plane) x 6 int64
-      while it is built) and four working copies of it (pointer doubling
-      and substitution make new tables), and the query pointers;
+      ``cap`` (13 int64 words and 2 flags a slot) and the replicated
+      counts (overflow, four critical counts, unresolved, the critical
+      peak);
+    - phases["order"], the sample sort (``nb > 1``) at its last step, the
+      scatter of the received ranks: the slab and its global ids, the
+      sort's n-sized arrays (key, sorted key, bucket, its flags, offsets,
+      slots; the rank table of n + 1), the first exchange's padded send
+      buffer (16 B a slot and a dump slot per bucket), and both
+      exchanges' C-sized arrays (the two received buffers, 16 B a slot;
+      the second payload, 16 B; the received and sorted keys, their ranks,
+      ids, owners, positions, slots, indices and values, 8 B each; three
+      flags): 61 n + 131 C + 16 nb;
+    - phases["resolution"], the tet table's ring resolution inside a ring
+      rotation's substitution (``nb > 1``): beside the slab, ids, ranks,
+      the int64 halo volume and the 153 B of rows a vertex, the three
+      coordinates, the vertex partner's offsets, the tet table, the
+      critical edge and triangle masks (14 + 36 flags a vertex) and the
+      resolved vertex table, the tet table doubled, the rotation's
+      current table, and the substitution's seven tables of 6 int64 a
+      vertex (offsets, two clamped indices, a gather, two selects and its
+      result) and two masks: 715 n; the halo planes and the rotating
+      boundary tables: 112 P; the emission's 222 B a triplet slot and
+      five query arrays of 16 B: 302 cap.  The rank-free keys have no
+      sort phase (their keys are 8 B a vertex), and below the resolution
+      the phases hold less (the tet table's build 551 n, the emission
+      an own subset of the resolution's);
+    - temp: the larger phase less argument and output;
     - halo_gradient: ``roofline.io_bytes`` of the fused kernel's halo
       entry over the block (int32 ranks below 2^31 global vertices, else
       int64) and its two ghost planes;
@@ -664,30 +688,39 @@ def ddms_block_bytes(fc, rotations=None):
       vertex) and the int64 tet table written;
     - resolution_v / resolution_t: per ring rotation the table (nv_local
       x ent int64, ent 1 and 6) and its 2 x crit_capacity queries read and
-      written once, times the rotation count."""
-    nvl, P, cap = fc.nv_local, fc.plane, fc.crit_capacity
-    nv = nvl * fc.n_blocks
+      written once, times the rotation count.
+
+    The CUDA kernel allocates only its rows (and an int32 copy of the
+    halo volume); sorts and ``nonzero`` on the card may hold scratch the
+    model leaves out (chip_smoke.py's [plan] holds the sum to the card)."""
+    n, P, cap, nb = fc.nv_local, fc.plane, fc.crit_capacity, fc.n_blocks
+    nv = n * nb
     rank_bytes = 4 if fc.use_sample_sort and nv < 2 ** 31 else 8
-    output = (nvl * (8 + 74 + 74 + 1 + 4) + cap * (13 * 8 + 2)
+    argument = n * 4
+    output = (n * (8 + 74 + 74 + 1 + 4) + cap * (13 * 8 + 2)
               + 1 + 4 * 8 + 8 + 8)
-    n_t = (nvl + P) * 6
-    temp = ((nvl + 2 * P) * 8 + 4 * nvl * 8 + nvl * 8 + n_t * 8
-            + 4 * nvl * 6 * 8 + 4 * cap * 8)
+    phases = {"resolution": 715 * n + 112 * P + 302 * cap}
+    if fc.use_sample_sort and nb > 1:
+        C = int(math.ceil(fc.sort_slack * n / nb)) * nb
+        phases["order"] = 61 * n + 131 * C + 16 * nb
+    peak = max(argument + output, *phases.values())
+    n_t = (n + P) * 6
     rot = {name: (rotations or {}).get(name, fc.ring_rotation_count(ent))
            for name, ent in (("v", 1), ("t", 6))}
-    by = dict(halo_gradient=RL.io_bytes(nvl, rank_bytes, False,
+    by = dict(halo_gradient=RL.io_bytes(n, rank_bytes, False,
                                         ghosts=2 * P),
-              successors=nvl * 48 + n_t * 8)
+              successors=n * 48 + n_t * 8)
     for name, ent in (("v", 1), ("t", 6)):
-        by[f"resolution_{name}"] = rot[name] * (2 * nvl * ent * 8
+        by[f"resolution_{name}"] = rot[name] * (2 * n * ent * 8
                                                 + 2 * 2 * cap * 8)
-    return dict(argument=nvl * 4, output=output, temp=temp,
+    return dict(argument=argument, output=output,
+                temp=peak - argument - output, phases=phases,
                 rank_bytes=rank_bytes, rotations=rot, passes=by)
 
 
 def plan_ddms(dims, mesh, crit_cap=4096, ring_rotations=2,
               gradient_chunk=262144, use_sample_sort: bool = True,
-              rotations=None):
+              rotations=None, sort_slack: float = 2.0):
     """The plan of ``run_front`` over ``dims`` in one block per device of
     ``mesh`` (a ``DeviceMesh`` or a mapping of axis name to size): the
     record :func:`lower_ddms` writes, less its names."""
@@ -697,7 +730,7 @@ def plan_ddms(dims, mesh, crit_cap=4096, ring_rotations=2,
     fc = FrontConfig(tuple(dims), n_dev, crit_cap=crit_cap,
                      ring_rotations=ring_rotations,
                      gradient_chunk=gradient_chunk,
-                     use_sample_sort=use_sample_sort)
+                     use_sample_sort=use_sample_sort, sort_slack=sort_slack)
     blk = ddms_block_bytes(fc, rotations)
     coll = RL.collective_bytes(RL.ddms_collectives(fc, mesh), mesh)
     mf = float(DDMS_OPS_PER_VERTEX * fc.nv_local)
@@ -718,9 +751,11 @@ def plan_ddms(dims, mesh, crit_cap=4096, ring_rotations=2,
                             "output_size_in_bytes": blk["output"],
                             "temp_size_in_bytes": blk["temp"]},
         "bytes_detail": blk["passes"],
+        "phase_bytes": blk["phases"],
         "config": {"crit_cap": crit_cap, "ring_rotations": ring_rotations,
                    "gradient_chunk": gradient_chunk,
                    "use_sample_sort": use_sample_sort,
+                   "sort_slack": sort_slack,
                    "crit_capacity": fc.crit_capacity,
                    "rotations": blk["rotations"],
                    "kernel_rank_bytes": blk["rank_bytes"]},

@@ -26,6 +26,8 @@ from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Tuple
 
+import torch
+
 from repro_torch.core.gradient import row_sid_offsets
 from repro_torch.core.grid import Grid
 from repro_torch.obs.metrics import global_metrics
@@ -161,10 +163,13 @@ class Plan:
     def describe(self) -> str:
         """Human-readable one-plan summary."""
         if self.streamed and self.n_blocks > 1:
-            # the composed engine: every shard streams its z-slab, the
-            # boundary-plane halo exchange is double-buffered against
-            # chunk compute
-            mode = (f"sharded-streamed x{self.n_blocks} "
+            # the composed engine: every shard streams its z-slab on its
+            # card, the boundary-plane halo exchange is double-buffered
+            # against chunk compute
+            from repro_torch.stream.sharded import _shard_devices
+            cards = _shard_devices(torch.device(self.device))
+            mode = (f"sharded-streamed x{self.n_blocks} over "
+                    f"{', '.join(map(str, cards[:self.n_blocks]))} "
                     f"(overlapped halo exchange)")
         elif self.streamed:
             mode = "streamed"

@@ -144,20 +144,42 @@ def _using(stream: Optional[torch.cuda.Stream]):
     return torch.cuda.stream(stream) if stream is not None else nullcontext()
 
 
-class _Uploader:
-    """Host slabs to the device, for one loader thread.
+def _cross(t: torch.Tensor, device: torch.device,
+           link: Optional[torch.cuda.Stream] = None) -> torch.Tensor:
+    """``t`` on ``device``: the one place a tensor moves between cards.
 
-    On CUDA: two pinned host buffers used in turns, and a copy stream; a
-    buffer is refilled only after its previous copy has finished.  On the
-    CPU the slab itself, as a tensor."""
+    PyTorch copies between two cards on the *source* card's current
+    stream and makes the destination card's current stream wait for the
+    copy; the copy itself waits for the destination's current stream.
+    ``link``, a stream on the source card, is made that current stream for
+    the copy, and the source is kept from reuse until the copy has run on
+    it; without ``link`` the caller's current streams order the copy.  A
+    tensor already on ``device`` is returned as it is."""
+    if t.device == device:
+        return t
+    if link is None:
+        return t.to(device, non_blocking=True)
+    with torch.cuda.stream(link):
+        out = t.to(device, non_blocking=True)
+    t.record_stream(link)
+    return out
+
+
+class _Uploader:
+    """Host slabs to ``device``, for one loader thread.
+
+    On CUDA: two pinned host buffers used in turns, and a copy stream on
+    ``device``; a buffer is refilled only after its previous copy has
+    finished.  On the CPU the slab itself, as a tensor."""
 
     def __init__(self, device: torch.device, max_elems: int):
         self.device = device
         self.stream = None
         if device.type == "cuda":
-            self.stream = torch.cuda.Stream(device)
-            self._bufs = [torch.empty(max_elems, dtype=torch.float32,
-                                      pin_memory=True) for _ in range(2)]
+            with torch.cuda.device(device):
+                self.stream = torch.cuda.Stream(device)
+                self._bufs = [torch.empty(max_elems, dtype=torch.float32,
+                                          pin_memory=True) for _ in range(2)]
             self._copied: List[Optional[torch.cuda.Event]] = [None, None]
             self._next = 0
 
@@ -248,6 +270,8 @@ def _compute_chunk(slab: torch.Tensor, c: Chunk, dims, kernel: str,
 def _scatter_chunk(grid: Grid, gf: GR.GradientField, keys: torch.Tensor,
                    owned_keys: torch.Tensor, rows, c: Chunk,
                    offsets) -> None:
+    """Scatter one chunk's rows and owned keys into ``gf`` and ``keys``,
+    on their device (the rows and keys must lie there already)."""
     v0 = c.vid0(grid.dims)
     GR.scatter_rows_chunk(grid, gf, *rows, v0, offsets=offsets)
     keys[v0: v0 + owned_keys.numel()] = owned_keys

@@ -26,14 +26,26 @@ Comm accounting distinguishes the total halo time (``comm_s``) from the
 part that ran while the device was busy (``comm_hidden_s``);
 ``overlap_fraction = hidden / total`` is the comm-hiding figure of merit.
 
-Every shard runs on the one device of the run, on a ``torch.cuda.Stream``
-of its own, from a host thread of its own.  The dense gradient and the
-key array are allocated on the caller's stream, which every shard stream
-waits for before it scatters; a plane published on one shard's stream is
-waited for by an event and kept alive with ``record_stream`` on the
-receiver's.  Output is **bit-identical** to the single-shard streamed
-path: the packed ``(value, vid)`` keys are global, chunk scatters write
-disjoint sids, and the back-end only ever compares orders.
+Shard ``s`` runs on card ``s % N`` of the ``N`` visible cards
+(:func:`_shard_devices`, the reference's ``_shard_device`` rule), on a
+``torch.cuda.Stream`` of its own there, from a host thread of its own:
+its pinned upload buffers, copy stream, boundary planes, key volumes and
+kernel launches all stay on that card.  The dense gradient and the key
+array stay on the *home* device, the run's ``device`` (the pipeline's,
+and the output contract), allocated on the caller's stream: each chunk's
+owned keys and packed rows (8 + 153 B a vertex) cross to home, where a
+home-side stream of the shard, which waits for the caller's stream,
+scatters them.  That moves fewer bytes over the link than scattering on
+the shard's card and copying the chunk's sid ranges (the dense gradient
+is ~206 B a vertex).  A plane published on one card carries an event of
+the publisher's stream; the receiver's streams wait for it, and a plane
+from another card is copied over on a link stream of the receiver's on
+the publisher's card, kept alive there until the copy has run
+(:func:`~repro_torch.stream.scheduler._cross`, the one place a tensor
+moves between cards).  On one card, or on the CPU, every shard shares
+the home device.  Output is **bit-identical** to the single-shard
+streamed path: the packed ``(value, vid)`` keys are global, chunk
+scatters write disjoint sids, and the back-end only ever compares orders.
 """
 
 from __future__ import annotations
@@ -56,7 +68,7 @@ from repro_torch.obs.trace import maybe_span
 from .chunks import (Chunk, FieldSource, pack_value_keys_torch, plan_chunks,
                      plan_shards)
 from .scheduler import (StreamReport, StreamResult, _adopt, _compute_chunk,
-                        _current_stream, _Resident, _scatter_chunk,
+                        _cross, _current_stream, _Resident, _scatter_chunk,
                         _stage_counts, _sync, _Uploader, _using)
 
 _HALO_TIMEOUT_S = 600.0
@@ -77,7 +89,7 @@ class HaloExchange:
     a receive issued from a loader thread overlaps the wait with the
     receiver's own compute.  A plane on a CUDA device carries an event
     recorded on the publisher's stream; ``recv`` makes the receiver's
-    current stream wait for it."""
+    stream wait for it, and brings a plane from another card over."""
 
     def __init__(self, n_shards: int):
         self.n_shards = int(n_shards)
@@ -99,8 +111,17 @@ class HaloExchange:
     def recv(self, shard: int, side: str,
              timeout: float = _HALO_TIMEOUT_S, *,
              waiter: Optional[int] = None,
-             plane_z: Optional[int] = None) -> torch.Tensor:
-        """Block until neighbor ``shard`` publishes its ``side`` plane.
+             plane_z: Optional[int] = None,
+             device=None) -> torch.Tensor:
+        """Block until neighbor ``shard`` publishes its ``side`` plane, and
+        return it on ``device`` (default: where it was published), ready
+        for the current stream of that device: the receiver's stream.
+
+        On the publisher's card the receiver's stream waits for the
+        publisher's event.  From another card the plane is copied on a
+        link stream of the publisher's card that waits for that event,
+        the receiver's stream waits for the copy, and the source plane
+        is kept alive until the copy has run.
 
         ``waiter``/``plane_z`` are diagnostics only: on timeout the
         error names who was waiting, which neighbor never published,
@@ -123,9 +144,26 @@ class HaloExchange:
             _flight.crash_dump("halo_exchange_timeout", exc=err)
             raise err
         _, plane, ready = self._slots[(shard, side)]
-        if ready is not None:
-            torch.cuda.current_stream(plane.device).wait_event(ready)
-        return plane
+        dst = plane.device if device is None else torch.device(device)
+        if ready is None:
+            return _cross(plane, dst)
+        if dst == plane.device:
+            torch.cuda.current_stream(dst).wait_event(ready)
+            return plane
+        link = torch.cuda.Stream(plane.device)
+        link.wait_event(ready)
+        return _cross(plane, dst, link)
+
+
+def _shard_devices(home: torch.device) -> List[torch.device]:
+    """The devices the shards run on, shard ``s`` on ``devices[s % N]``
+    (the reference's ``_shard_device`` rule): every visible card in index
+    order where ``home`` is a CUDA device, else ``[home]``.  No card is
+    skipped and nothing falls back: a shard that cannot reach its card
+    raises."""
+    if home.type != "cuda":
+        return [home]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
 def _pack_plane(source: FieldSource, z: int, plane: int,
@@ -150,8 +188,16 @@ def sharded_stream_front(source: FieldSource, n_shards: int, *,
     global key array + :class:`StreamReport`, bit-identical to the
     in-memory path.  ``n_shards`` is clamped to the z extent; chunk knobs
     apply per shard (each shard keeps <= 2 ghost-extended chunks
-    resident)."""
+    resident).  ``device`` (default ``"cuda"``) is the home device, where
+    the gradient and the keys are allocated; on CUDA, shard ``s`` runs on
+    card ``s % N`` of the ``N`` visible cards (:func:`_shard_devices`).
+    Each ``per_shard`` entry names its ``device``, its card's
+    ``peak_device_bytes`` (``torch.cuda.max_memory_allocated``; None on
+    the CPU) and the ``link_bytes`` it moved between cards."""
     dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    devices = _shard_devices(dev)
     grid = Grid.of(*source.dims)
     nx, ny, nz = grid.dims
     plane = nx * ny
@@ -166,7 +212,8 @@ def sharded_stream_front(source: FieldSource, n_shards: int, *,
     gf = GR.alloc_gradient(grid, dev)
     offsets = GR.row_sid_offsets(grid, dev)
     keys = torch.empty(grid.nv, dtype=torch.int64, device=dev)
-    # the shards' streams wait for these allocations before they scatter
+    # the shards' home-side streams wait for these allocations before
+    # they scatter
     home = _current_stream(dev)
     exchange = HaloExchange(n_shards)
     res = _Resident()
@@ -181,16 +228,23 @@ def sharded_stream_front(source: FieldSource, n_shards: int, *,
         # watchdog lane names this shard if its chunk loop goes quiet
         with _flight.dump_on_error(f"stream.sharded.shard{s}"), \
                 _watchdog.lane(f"stream.shard{s}"):
-            cs = torch.cuda.Stream(dev) if home is not None else None
-            with _using(cs):
-                if cs is not None:
-                    cs.wait_stream(home)
+            d = devices[s % len(devices)]
+            # cs computes on the shard's card; hs scatters on home (the
+            # same stream where the shard's card is home)
+            cs = hs = None
+            if home is not None:
+                cs = torch.cuda.Stream(d)
+                hs = cs if d == dev else torch.cuda.Stream(dev)
+            with _using(cs), _using(hs):
+                if hs is not None:
+                    hs.wait_stream(home)
                 try:
-                    return run_shard(s, cs)
+                    return run_shard(s, d, cs, hs)
                 finally:
                     _sync(cs)
+                    _sync(hs)
 
-    def run_shard(s: int, cs) -> dict:
+    def run_shard(s: int, d: torch.device, cs, hs) -> dict:
         z0, z1 = shards[s]
         chunks = shard_chunks[s]
         st = dict(shard=s, z0=z0, z1=z1, n_chunks=len(chunks),
@@ -198,9 +252,10 @@ def sharded_stream_front(source: FieldSource, n_shards: int, *,
                   comm_s=0.0, comm_hidden_s=0.0, loaded_bytes=0,
                   halo_planes=0, peak_resident_field_bytes=0,
                   max_chunk_bytes=max(c.load_bytes(grid.dims)
-                                      for c in chunks))
+                                      for c in chunks),
+                  device=str(d), link_bytes=0)
         shard_res = _Resident()
-        up = _Uploader(dev, st["max_chunk_bytes"] // 4)
+        up = _Uploader(d, st["max_chunk_bytes"] // 4)
 
         # -- eager boundary publish: issue the exchange before any
         # kernel runs, so neighbor receives are satisfied ahead of need
@@ -213,7 +268,7 @@ def sharded_stream_front(source: FieldSource, n_shards: int, *,
             with maybe_span(tr, "halo_publish", shard=s, side=side,
                             plane_z=z):
                 res.add(plane_bytes)
-                exchange.publish(s, side, _pack_plane(source, z, plane, dev))
+                exchange.publish(s, side, _pack_plane(source, z, plane, d))
                 res.release(plane_bytes)
             st["loaded_bytes"] += plane_bytes
             st["halo_planes"] += 1
@@ -240,15 +295,22 @@ def sharded_stream_front(source: FieldSource, n_shards: int, *,
                         with maybe_span(tr, "halo_recv", shard=s,
                                         neighbor=s - 1, plane_z=c.zlo - 1):
                             halo_lo = exchange.recv(s - 1, "last", waiter=s,
-                                                    plane_z=c.zlo - 1)
+                                                    plane_z=c.zlo - 1,
+                                                    device=d)
                     if c.halo_above:
                         with maybe_span(tr, "halo_recv", shard=s,
                                         neighbor=s + 1, plane_z=c.zhi):
                             halo_hi = exchange.recv(s + 1, "first", waiter=s,
-                                                    plane_z=c.zhi)
+                                                    plane_z=c.zhi, device=d)
                 recv_dt = time.perf_counter() - t0
             return (slab.nbytes, dslab, halo_lo, halo_hi, up.handoff(),
                     load_dt, recv_dt)
+
+        def neighbor_bytes(n: int) -> int:
+            """Bytes of a boundary plane from shard ``n``'s card, if that
+            card is not this shard's."""
+            other = devices[n % len(devices)]
+            return plane * 8 if other != d else 0
 
         t_wall = time.perf_counter()
         comm_exposed = publish_s
@@ -282,11 +344,22 @@ def sharded_stream_front(source: FieldSource, n_shards: int, *,
                     _sync(cs)
                 st["compute_s"] += time.perf_counter() - t0
 
+                if c.halo_below:
+                    st["link_bytes"] += neighbor_bytes(s - 1)
+                if c.halo_above:
+                    st["link_bytes"] += neighbor_bytes(s + 1)
+
                 t0 = time.perf_counter()
                 with maybe_span(tr, "chunk_scatter", shard=s, zlo=c.zlo,
                                 zhi=c.zhi):
+                    # copied on cs, which wrote them; hs waits for the copy
+                    owned, *rows = (_cross(t, dev) for t in (owned, *rows))
+                    if d != dev:
+                        st["link_bytes"] += sum(
+                            t.numel() * t.element_size()
+                            for t in (owned, *rows))
                     _scatter_chunk(grid, gf, keys, owned, rows, c, offsets)
-                    _sync(cs)
+                    _sync(hs)
                 st["scatter_s"] += time.perf_counter() - t0
                 for r in (res, shard_res):
                     r.release(c.load_bytes(grid.dims))
@@ -294,6 +367,8 @@ def sharded_stream_front(source: FieldSource, n_shards: int, *,
         st["wall_s"] = time.perf_counter() - t_wall
         st["comm_hidden_s"] = max(0.0, st["comm_s"] - comm_exposed)
         st["peak_resident_field_bytes"] = shard_res.peak
+        st["peak_device_bytes"] = torch.cuda.max_memory_allocated(d) \
+            if d.type == "cuda" else None
         return st
 
     t_wall = time.perf_counter()

@@ -12,7 +12,10 @@ hand-computed case; the link rule; the DDMS plan's per-block argument and
 output bytes equal to the arrays ``run_front`` returns at a small grid in 2
 and 4 blocks; and records of full-width cells that ``benchmarks/report.py``
 renders.  Counts are integers of shapes: every comparison is exact, except
-the extrapolation's, which is affine arithmetic on floats (relative 1e-12).
+the extrapolation's, which is affine arithmetic on floats (relative 1e-12);
+and the DDMS plan's per-block peak (argument + output + temp) times the
+block count within relative 1e-3 of the peak live bytes the cost counter
+counts over ``run_front`` on real CPU tensors.
 """
 
 import dataclasses
@@ -365,6 +368,56 @@ def test_ddms_block_bytes_equal_run_front_outputs(n_blocks):
     assert rec["memory_analysis"]["output_size_in_bytes"] == plan["output"]
     assert rec["bytes_per_device"] == sum(plan["passes"].values())
     assert rec["config"]["kernel_rank_bytes"] == 4
+
+
+@pytest.mark.parametrize("kw", [dict(sort_slack=2.0), dict(sort_slack=4.0),
+                                dict(sort_slack=16.0),
+                                dict(use_sample_sort=False)])
+def test_ddms_planned_peak_equals_a_counted_run_front(kw, monkeypatch):
+    """``n_blocks x (argument + output + temp)`` within 1e-3 of the peak
+    live bytes ``CostCounter`` counts over ``run_front`` on real CPU
+    tensors (``isabel`` 24 x 24 x 16 in 4 blocks, the triplet capacity
+    apart from the block's vertex count; at slack 16 the sample sort holds
+    the peak, else the tet table's ring resolution).  The card's halo
+    entry allocates only its rows (and the int32 copy of the volume); the
+    plain version CPU tensors run holds far more, so the count runs it
+    outside the counter and allocates the kernel's outputs inside it."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    from repro_torch.distributed import shardmap_pipeline as SP
+    from repro_torch.fields.generators import make_field
+    from repro_torch.kernels import lower_star as LS
+
+    def halo_entry(ext, *, rank_bound=None):
+        ext = LS._maybe_int32(ext, rank_bound)
+        with _disable_current_modes():
+            rows = LS.fused_rows_from_halo_volume(ext, rank_bound=rank_bound)
+        outs = LS._outputs(rows[0].shape[0], ext.device)
+        for o, r in zip(outs, rows):
+            o.copy_(r)
+        return outs
+
+    monkeypatch.setattr(SP, "fused_rows_from_halo_volume", halo_entry)
+    dims, nb = (24, 24, 16), 4
+    f = torch.from_numpy(make_field("isabel", dims, seed=0))
+    cc = D.CostCounter()
+    # some 17k small ops: one intra-op thread keeps them from waiting on
+    # a thread pool that shares the cores with other test processes
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with cc:
+            fc, out = SP.run_front(dims, f, nb, device="cpu", **kw)
+    finally:
+        torch.set_num_threads(threads)
+    blk = D.ddms_block_bytes(fc)
+    planned = nb * (blk["argument"] + blk["output"] + blk["temp"])
+    assert abs(planned - cc.peak) <= 1e-3 * cc.peak, (planned, cc.peak)
+    assert fc.crit_capacity != fc.nv_local
+    held = "order" if kw.get("sort_slack") == 16.0 else "resolution"
+    assert max(blk["phases"], key=blk["phases"].get) == held
+    rec = D.plan_ddms(dims, {"data": nb}, crit_cap=None, ring_rotations=None,
+                      **kw)
+    assert sum(rec["memory_analysis"].values()) * nb == planned
 
 
 def test_records_render_and_the_world_is_gone(tmp_path):

@@ -306,11 +306,79 @@ def test_sharded_front_under_thread_contention():
     assert torch.equal(got.keys, want.keys)
 
 
+def _cpu_cards(n):
+    """``n`` distinct CPU devices standing in for cards: a tensor moved to
+    any of them stays on the CPU, so every cross-card step of the sharded
+    engine runs here."""
+    return [torch.device("cpu", i) for i in range(n)]
+
+
+@pytest.mark.parametrize("n_cards", [1, 2, 3, 4])
+def test_shard_devices_map_shard_s_to_card_s_mod_n(n_cards, monkeypatch):
+    """Every visible card in index order for a CUDA home, ``[home]`` for
+    a CPU one; shard ``s`` runs on ``devices[s % N]`` for 2, 4 and 5
+    shards (its ``per_shard`` entry names it)."""
+    from repro_torch.stream import sharded as SS
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n_cards)
+    assert SS._shard_devices(torch.device("cuda", 0)) == [
+        torch.device("cuda", i) for i in range(n_cards)]
+    assert SS._shard_devices(torch.device("cpu")) == [torch.device("cpu")]
+    cards = _cpu_cards(n_cards)
+    monkeypatch.setattr(SS, "_shard_devices", lambda home: cards)
+    dims = (4, 3, 10)
+    f = vol(make_field("random", dims, seed=2), dims)
+    for n_shards in (2, 4, 5):
+        got = sharded_stream_front(ArraySource(f), n_shards, chunk_z=1,
+                                   device="cpu")
+        assert [st["device"] for st in got.report.per_shard] == [
+            str(cards[s % n_cards]) for s in range(n_shards)]
+
+
+def test_sharded_front_across_two_devices(monkeypatch):
+    """4 shards over two distinct devices (``cpu`` home, ``cpu:1``):
+    gradient, keys and ``per_shard`` equal to the reference's
+    ``sharded_stream_front`` and to one shard's run; the shards off home
+    account their rows, keys and halo planes as link bytes; the plan
+    names both devices."""
+    from repro_torch.stream import sharded as SS
+    cards = [torch.device("cpu"), torch.device("cpu", 1)]
+    monkeypatch.setattr(SS, "_shard_devices", lambda home: cards)
+    dims = (6, 7, 20)
+    f = vol(make_field("backpack", dims, seed=1), dims)
+    want = j_sharded_stream_front(JArraySource(f), 4, kernel="jax",
+                                  chunk_z=3)
+    got = sharded_stream_front(ArraySource(f), 4, chunk_z=3, device="cpu")
+    _assert_same_front(got, want, "fused", sharded=True)
+    plane = 6 * 7
+    for a, b in zip(got.report.per_shard, want.report.per_shard):
+        for k in b:
+            if not k.endswith("_s"):
+                assert a[k] == b[k], k
+        assert a["device"] == str(cards[a["shard"] % 2])
+        assert a["peak_device_bytes"] is None
+        owned = (a["z1"] - a["z0"]) * plane
+        # every neighbour plane comes from the other device; on cpu:1 every
+        # owned vertex's key and rows (8 + 153 B) also go home
+        assert a["link_bytes"] == a["halo_planes"] * plane * 8 \
+            + (owned * 161 if a["shard"] % 2 else 0)
+    one = stream_front(ArraySource(f), chunk_z=3, device="cpu")
+    for name in ("crit", "pair_up", "pair_down"):
+        for k, v in getattr(one.gf, name).items():
+            assert torch.equal(v, getattr(got.gf, name)[k]), name
+    assert torch.equal(one.keys, got.keys)
+    plan = PersistencePipeline(device="cpu").lower(TopoRequest(
+        field=ArraySource(f), stream=True, chunk_z=3, n_blocks=4,
+        distributed=False))
+    assert "sharded-streamed x4 over cpu, cpu:1" in plan.describe()
+
+
 def test_halo_exchange_round_trip_and_timeout():
     ex = HaloExchange(3)
     plane = torch.arange(12, dtype=torch.int64)
     ex.publish(1, "last", plane)
     assert torch.equal(ex.recv(1, "last", timeout=1.0), plane)
+    assert torch.equal(ex.recv(1, "last", device=torch.device("cpu", 1)),
+                       plane)
     with pytest.raises(HaloExchangeTimeout, match="shard 1"):
         ex.recv(1, "first", timeout=0.05, waiter=2, plane_z=4)
 
