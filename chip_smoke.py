@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py                  # from the repository root, one GPU
     python3 chip_smoke.py --timing-of DIR  # the timing phase alone, on DIR
-    python3 chip_smoke.py --group          # build, stream's multi-card
-                                           # part, dist and group alone
-                                           # (on 2-4 GPUs: shards and
-                                           # ranks over the cards)
+    python3 chip_smoke.py --group          # build, train_mesh (4 GPUs),
+                                           # stream's multi-card part,
+                                           # dist and group alone (on 2-4
+                                           # GPUs: shards and ranks over
+                                           # the cards)
 
 Phases (one line each; any failing phase makes the script exit non-zero):
 
@@ -214,8 +215,14 @@ Phases (one line each; any failing phase makes the script exit non-zero):
               landscape) through ``TopoService`` on the fused kernel,
               its diagram equal to the ``np`` back-end's, its launches
               counted (zeroed just before, read just after) and its
-              re-check a cache hit that launches nothing.  Tolerances
-              are stated beside TRAIN_LOSS_RTOL.
+              re-check a cache hit that launches nothing; and the ten
+              smoke architectures' step 0 through the ``DTensor`` path on
+              a (data=1, model=1) ``DeviceMesh`` over a one-rank NCCL
+              group (``file://`` rendezvous; parameters placed by
+              ``param_shardings``, the batch by ``batch_spec``), loss and
+              every gathered gradient leaf held to the plain step on the
+              card, the group destroyed before phase 13.  Tolerances are
+              stated beside TRAIN_LOSS_RTOL.
 13. plan    — multi-device planning (``repro_torch.launch.{mesh,
               roofline, dryrun}``, ``repro_torch.train.sharding``): the
               planner on this host for every architecture at
@@ -254,9 +261,21 @@ The line before the last is the JSON ``kernels`` record; the last line is
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside it, the script prints no result and exits non-zero.
 
-``--group`` runs only the build, phase 4's multi-card part, phase 5 (and
-phase 13's DDMS peak held to it) and phase 6 (every part even where one before it failed; then it exits 1
-naming them); it prints no result lines.
+``--group`` runs only the build, ``[train_mesh]`` (below, with phase
+13's mesh plans held to it), phase 4's multi-card part, phase 5 (and
+phase 13's DDMS peak held to it) and phase 6 (every part even where one
+before it failed; then it exits 1 naming them); it prints no result
+lines.  ``[train_mesh]`` (four cards): minitron-4b at its published width
+and depth, whose training state (81.5 GB) fits no one card, trained on 4
+NCCL ranks, one per card, on the (data=2, model=2) and (data=1, model=4)
+meshes (``init_placed`` parameters, B 2 x S 4096, remat, 4 AdamW steps):
+per rank the static bytes, the peak over the steps, first and steady
+seconds per step, tokens per second, losses and gradient norm beside
+``nvidia-smi``'s name and power limit; the loss finite, falling and the
+same on every rank; step 0's loss, every gradient leaf (gathered to
+rank 0 one at a time) and the gradient norm held to a one-card reference
+(card 0 alone, microbatches=2); and ``plan_cell`` at each mesh
+held to every rank (static bytes equal, peak within PLAN_PEAK_RTOL).
 
 ``--timing-of DIR`` runs only phase 14 (without the plain version) on the
 port in another tree DIR, for instance the parent commit unpacked with
@@ -267,6 +286,7 @@ B, A).
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -2980,22 +3000,36 @@ TRAIN_DIRDERIV_RTOL = 1e-2
 TRAIN_MONITOR_N = 16
 
 
+def _leaf_rel(a, b):
+    """One gradient leaf ``a`` against ``b``: (RMS difference over the RMS
+    of ``b``, largest difference over the largest magnitude of ``b``,
+    whether ``a`` is finite), computed on ``a``'s device."""
+    import torch
+    a, b = a.float(), b.float().to(a.device)
+    d = (a - b).abs()
+    top = max(float(b.abs().max()), 1e-30)
+    rms = max(float(b.pow(2).mean().sqrt()), 1e-30)
+    return (float(d.pow(2).mean().sqrt()) / rms, float(d.max()) / top,
+            bool(torch.isfinite(a).all()))
+
+
+def _leaf_bad(r, m, finite, bf16):
+    """Past the tolerance (TRAIN_RMS and TRAIN_MAX if ``bf16``, else
+    TRAIN_SAME), or not finite."""
+    return not finite or ((r > TRAIN_RMS or m > TRAIN_MAX) if bf16
+                          else m > TRAIN_SAME)
+
+
 def _train_leaf_err(got, want, what, bf16):
     """(largest RMS-relative, largest max-relative) difference over the
-    leaves of two gradient trees; raises past the tolerance (TRAIN_RMS and
-    TRAIN_MAX if ``bf16``, else TRAIN_SAME) or on a value not finite."""
-    import torch
+    leaves of two gradient trees (:func:`_leaf_rel`); raises past the
+    tolerance or on a value not finite (:func:`_leaf_bad`)."""
     from repro_torch.train.pytree import tree_leaves
     rms_err = max_err = 0.0
     for i, (a, b) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
-        a, b = a.float().cpu(), b.float().cpu()
-        d = (a - b).abs()
-        top = max(float(b.abs().max()), 1e-30)
-        rms = max(float(b.pow(2).mean().sqrt()), 1e-30)
-        r, m = float(d.pow(2).mean().sqrt()) / rms, float(d.max()) / top
+        r, m, finite = _leaf_rel(a, b)
         rms_err, max_err = max(rms_err, r), max(max_err, m)
-        bad = (r > TRAIN_RMS or m > TRAIN_MAX) if bf16 else m > TRAIN_SAME
-        if bad or not bool(torch.isfinite(a).all()):
+        if _leaf_bad(r, m, finite, bf16):
             raise AssertionError(f"[train] {what}: leaf {i} rms {r} max {m}")
     return rms_err, max_err
 
@@ -3069,6 +3103,81 @@ def train_smoke(arch, dev):
         raise AssertionError(f"[train] {arch}: parameters after one step "
                              f"{out['step_param_diff_over_lr']} lr apart")
     return out
+
+
+def _mesh_unit_arch(arch, mesh, dev):
+    """One smoke architecture's step-0 loss and gradient through the
+    ``DTensor`` path on the (data=1, model=1) ``mesh`` (parameters placed
+    by ``param_shardings``, the batch by ``batch_spec``, the rules
+    installed), against the plain step on the same card from the same
+    parameters (the card-vs-CPU tolerances: the same ops run on whole
+    tensors, but the loss's log_softmax and the embedding's lookup take
+    their vocab-parallel forms)."""
+    import zlib
+    import numpy as np
+    import torch
+    from repro_torch.configs import smoke_config
+    from repro_torch.data.pipeline import DataConfig, host_batch_at
+    from repro_torch.models import transformer as T
+    from repro_torch.train import sharding as SH
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.pytree import tree_map
+    cfg = smoke_config(arch)
+    params = T.init_params(cfg, SEED, device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in host_batch_at(
+        DataConfig(cfg.vocab, 2, 16, seed=SEED), 0).items()}
+    fe = _lm_smoke_inputs(cfg, np.random.default_rng(
+        zlib.crc32(arch.encode())))[2]
+    if fe is not None:
+        batch["frontend"] = fe.float().to(dev)
+    plain = TS.StepConfig(remat=False)
+    lw, _, gw = TS.loss_and_grads(cfg, plain, params, batch)
+    rules = SH.ShardingRules()
+    placed = SH.place_tree(params.tree(), SH.param_shardings(
+        T.lm_meta(cfg), rules, mesh), mesh)
+    rows = {k: SH.place_rows(v, len(v), rules, mesh)
+            for k, v in batch.items()}
+    SH.set_rules(rules, mesh)
+    try:
+        lg, _, gg = TS.loss_and_grads(cfg, plain, placed, rows)
+    finally:
+        SH.set_rules(None, None)
+    out = dict(loss=float(lg), loss_vs_plain=abs(float(lg) - float(lw))
+               / abs(float(lw)))
+    if not out["loss_vs_plain"] <= TRAIN_LOSS_RTOL:
+        raise AssertionError(f"[train] {arch} on the (1, 1) mesh: loss "
+                             f"{float(lg)} vs {float(lw)}")
+    out["grad_rms_vs_plain"], out["grad_max_vs_plain"] = _train_leaf_err(
+        tree_map(lambda g: g.full_tensor(), gg), gw,
+        f"{arch} (1, 1) mesh vs plain", True)
+    return out
+
+
+def train_mesh_unit(dev, archs=None):
+    """[train]'s mesh check on one card: a one-rank NCCL group
+    (``file://`` rendezvous), a (data=1, model=1) ``DeviceMesh`` on it,
+    and the smoke architectures' step 0 through the ``DTensor`` path
+    against the plain step (:func:`_mesh_unit_arch`).  The group is
+    destroyed before it returns."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.configs import ARCHS
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method="file://" + os.path.join(tmp, "rendezvous"),
+            rank=0, world_size=1)
+        try:
+            mesh = DeviceMesh("cuda", torch.arange(1).reshape(1, 1),
+                              mesh_dim_names=("data", "model"))
+            for arch in archs or sorted(ARCHS):
+                t0 = time.perf_counter()
+                r = _mesh_unit_arch(arch, mesh, dev)
+                log("train", mesh_1x1=arch, backend="nccl",
+                    seconds=round(time.perf_counter() - t0, 3), **r)
+        finally:
+            dist.destroy_process_group()
 
 
 def _train_equal(a, b, what):
@@ -3452,6 +3561,7 @@ def phase_train(dev="cuda", archs=None, full=TRAIN_FULL, full_cfgs=None,
         r = train_smoke(arch, dev)
         log("train", smoke=arch, seconds=round(time.perf_counter() - t0, 3),
             **r)
+    train_mesh_unit(dev, archs)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         cfg, params, r = train_restart(dev, tmp)
@@ -3466,6 +3576,296 @@ def phase_train(dev="cuda", archs=None, full=TRAIN_FULL, full_cfgs=None,
     train_timing(dev, smi, **(timing or {}))
     log("train", seconds=round(time.perf_counter() - t_phase, 3), smi=smi)
     return monitor_launches, recs
+
+
+# [train_mesh] (``--group`` on four cards): minitron-4b at its published
+# width and depth (32 x 3072, 24 heads / 8 kv, vocab 256000), whose f32
+# parameters, gradients, m and v (81.5 GB) fit no single card, trained on
+# TRAIN_MESH_CARDS NCCL ranks, one per card, on each mesh of
+# TRAIN_MESH_MESHES: TRAIN_MESH_B x TRAIN_S (one fixed batch), remat,
+# TRAIN_STEPS AdamW steps (lr 1e-4, warmup 1, as [train]); the loss must be
+# finite and fall and read the same on every rank.  Step 0 is held to the
+# one-card reference (step 0's loss_and_grads on card 0 alone, the same
+# seeded parameters and batch, microbatches=2 so that parameters,
+# gradients and activations fit; its gradients kept on the host): the loss
+# within TRAIN_LOSS_RTOL and the gradient norm within
+# TRAIN_MESH_GNORM_RTOL, about ten times the 4.1e-4 and 4.2e-4 the two
+# meshes read on 4 x H100 (bf16 compute, the sums in other orders).  Each
+# gradient leaf, gathered to rank 0 one at a time, is logged beside the
+# reference's: in bf16 at 32 layers two sum orders part by about 7 % of a
+# leaf's RMS in every leaf alike (rounding carried through the depth), so
+# the leaves are held where rounding is small: the same meshes and batch
+# in f32 compute at the full width and TRAIN_MESH_F32_LAYERS layers (the
+# one-card f32 reference does not fit at full depth), every leaf within
+# TRAIN_SAME of its largest magnitude (:func:`_leaf_bad`), and the bf16
+# readings at that depth logged beside.
+TRAIN_MESH_MODEL = "minitron-4b"
+TRAIN_MESH_CARDS = 4
+TRAIN_MESH_MESHES = ((2, 2), (1, 4))
+TRAIN_MESH_B = 2
+TRAIN_MESH_GNORM_RTOL = 2.0 ** -8
+TRAIN_MESH_F32_LAYERS = 8
+
+
+def _local_bytes(tree):
+    """Bytes of the storages this rank holds for the leaves of ``tree``
+    (a ``DTensor``'s local shard)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.train.pytree import tree_leaves
+    return sum((x.to_local() if isinstance(x, DTensor) else x)
+               .untyped_storage().nbytes() for x in tree_leaves(tree))
+
+
+def _reset_peak():
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _train_mesh_data():
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig
+    cfg = get_config(TRAIN_MESH_MODEL)
+    return cfg, DataConfig(cfg.vocab, TRAIN_MESH_B, TRAIN_S, seed=SEED)
+
+
+def _train_mesh_reference(cfg, data_cfg, dev):
+    """Step 0 on one card alone: the seeded parameters and the batch,
+    ``loss_and_grads`` with microbatches=2 and remat.  Returns its record
+    (loss, gradient norm, seconds, peak) and its gradient leaves, moved to
+    the host."""
+    import torch
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.models import transformer as T
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.pytree import tree_leaves
+    _reset_peak()
+    params = T.init_params(cfg, SEED, device=dev)
+    batch = batch_at(data_cfg, 0, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _, grads = TS.loss_and_grads(
+        cfg, TS.StepConfig(microbatches=2, remat=True), params, batch)
+    gnorm = float(global_norm(grads))
+    torch.cuda.synchronize()
+    rec = dict(loss=float(loss), gnorm=gnorm,
+               seconds=time.perf_counter() - t0,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    host = [g.cpu() for g in tree_leaves(grads)]
+    del params, grads, batch
+    _reset_peak()
+    return rec, host
+
+
+def _gathered_leaf_errs(grads, ref_grads):
+    """Each leaf of the ``DTensor`` tree ``grads`` gathered in turn (a
+    collective: every rank calls this) and, where ``ref_grads`` (the
+    reference's leaves) is given, measured against it
+    (:func:`_leaf_rel`); no gathered leaf outlives the call."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.train.pytree import tree_leaves
+    errs = []
+    for i, g in enumerate(tree_leaves(grads)):
+        whole = g.full_tensor() if isinstance(g, DTensor) else g
+        if ref_grads is not None:
+            errs.append(_leaf_rel(whole, ref_grads[i]))
+    return errs
+
+
+def _train_mesh_run(cfg, data_cfg, shape, dev, ref_grads, steps=True):
+    """One mesh's run on this rank: seeded parameters made leaf by leaf and
+    placed (``init_placed``), moments placed alike, step 0's
+    ``loss_and_grads`` (its loss, gradient norm and gradient buffers; each
+    gradient leaf gathered in turn, every rank taking part, and on rank 0,
+    which holds the reference's leaves ``ref_grads``, measured against it
+    by :func:`_leaf_rel`), then, with ``steps``, TRAIN_STEPS AdamW steps on
+    the batch of step 0, each rank building its rows
+    (``launch.train.mesh_batch``), timed; static bytes and the peak over
+    the steps."""
+    import torch
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.launch.train import mesh_batch, mesh_rules
+    from repro_torch.models import transformer as T
+    from repro_torch.models.layers import ParamTree
+    from repro_torch.train import sharding as SH
+    from repro_torch.train import train_step as TS
+    from repro_torch.train.optimizer import (OptConfig, global_norm,
+                                             init_opt_state)
+    mesh = DeviceMesh("cuda", torch.arange(math.prod(shape)).reshape(shape),
+                      mesh_dim_names=("data", "model"))
+    rules = mesh_rules(mesh)
+    _reset_peak()
+    t0 = time.perf_counter()
+    params = ParamTree(SH.init_placed(T.lm_meta(cfg), SEED, rules, mesh,
+                                      SH.mesh_device(mesh)))
+    opt = init_opt_state(params)
+    torch.cuda.synchronize()
+    rec = dict(mesh=list(shape), init_s=time.perf_counter() - t0)
+    batch = mesh_batch(cfg, data_cfg, 0, mesh, rules)
+    sc = TS.StepConfig(remat=True)
+    step_fn = TS.make_train_step(cfg, OptConfig(lr=1e-4, warmup_steps=1), sc)
+    SH.set_rules(rules, mesh)
+    try:
+        t0 = time.perf_counter()
+        loss, _, grads = TS.loss_and_grads(
+            cfg, sc, params, {k: v for k, v in batch.items()
+                              if v is not None})
+        rec.update(loss0=float(loss), gnorm0=float(global_norm(grads)),
+                   grads_s=time.perf_counter() - t0)
+        rec["static_bytes"] = _local_bytes(grads) + _local_bytes(params) \
+            + _local_bytes(opt.m) + _local_bytes(opt.v)
+        rec["leaf_errs"] = _gathered_leaf_errs(grads, ref_grads)
+        del grads
+        if not steps:
+            return rec
+        torch.cuda.synchronize()
+        rec["before_steps_peak_bytes"] = torch.cuda.max_memory_allocated()
+        _reset_peak()
+        losses, secs = [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t0)
+        rec["step_peak_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        SH.set_rules(None, None)
+    rec.update(losses=losses, gnorm=float(m["gnorm"]), first_step_s=secs[0],
+               step_s=sum(secs[1:]) / (len(secs) - 1))
+    rec["tokens_per_s"] = data_cfg.batch * data_cfg.seq / rec["step_s"]
+    del params, opt, m, batch
+    _reset_peak()
+    return rec
+
+
+def _train_mesh_rank(rank, world, init, root, out_dir):
+    """One rank of [train_mesh] on card ``rank``: rank 0 runs the one-card
+    reference first (the others wait), then every mesh; then step 0 alone
+    at TRAIN_MESH_F32_LAYERS layers in f32 and in bf16 compute, the same
+    way (records ``f32/2x2`` ...); writes its records to
+    ``out_dir/rank<r>.json``."""
+    sys.path.insert(0, os.path.join(root, "src"))
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import layers
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=init, rank=rank,
+                            world_size=world)
+    try:
+        cfg, data_cfg = _train_mesh_data()
+        recs, ref_grads = {"rank": rank, "device": str(dev)}, None
+        if rank == 0:
+            recs["reference"], ref_grads = _train_mesh_reference(
+                cfg, data_cfg, dev)
+        dist.barrier()
+        for shape in TRAIN_MESH_MESHES:
+            recs["x".join(map(str, shape))] = _train_mesh_run(
+                cfg, data_cfg, shape, dev, ref_grads)
+        cut = dataclasses.replace(cfg, n_layers=TRAIN_MESH_F32_LAYERS)
+        for name, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            ref_grads = None
+            with _compute_dtype(layers, dtype):
+                if rank == 0:
+                    recs[name + "/reference"], ref_grads = \
+                        _train_mesh_reference(cut, data_cfg, dev)
+                dist.barrier()
+                for shape in TRAIN_MESH_MESHES:
+                    recs[name + "/" + "x".join(map(str, shape))] = \
+                        _train_mesh_run(cut, data_cfg, shape, dev, ref_grads,
+                                        steps=False)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(recs, fh)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def train_mesh(smi):
+    """[train_mesh]: TRAIN_MESH_CARDS ranks, one per card, each mesh of
+    TRAIN_MESH_MESHES in turn (see TRAIN_MESH_MODEL); one line per rank
+    and mesh (static bytes, peak, step seconds, tokens per second, losses,
+    gradient norm) beside ``nvidia-smi``'s name and power limit.  Returns
+    every rank's records (for the plan).  With fewer cards a line says it
+    did not run."""
+    import tempfile
+    import torch
+    import torch.multiprocessing as mp
+    world = TRAIN_MESH_CARDS
+    if torch.cuda.device_count() < world:
+        log("train_mesh", cards=torch.cuda.device_count(),
+            run=f"not run: it needs {world} cards")
+        return None
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_train_mesh_rank, nprocs=world, join=True, args=(
+            world, "file://" + os.path.join(tmp, "rendezvous"), HERE, tmp))
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+    ref = ranks[0]["reference"]
+    log("train_mesh", reference=TRAIN_MESH_MODEL, device=ranks[0]["device"],
+        microbatches=2, **ref, smi=smi)
+    for shape in TRAIN_MESH_MESHES:
+        key = "x".join(map(str, shape))
+        for r in ranks:
+            rec = dict(r[key])
+            rec.pop("leaf_errs")
+            log("train_mesh", model=TRAIN_MESH_MODEL, rank=r["rank"],
+                device=r["device"], **rec, smi=smi)
+            losses = rec["losses"]
+            if not (all(math.isfinite(x) for x in losses)
+                    and losses[-1] < losses[0]):
+                raise AssertionError(f"[train_mesh] {key} rank {r['rank']}:"
+                                     f" the loss did not fall: {losses}")
+            if losses != ranks[0][key]["losses"]:
+                raise AssertionError(f"[train_mesh] {key}: rank "
+                                     f"{r['rank']} read other losses")
+        rec = ranks[0][key]
+        errs = rec["leaf_errs"]
+        loss_rel = abs(rec["loss0"] - ref["loss"]) / abs(ref["loss"])
+        gnorm_rel = abs(rec["gnorm0"] - ref["gnorm"]) / abs(ref["gnorm"])
+        log("train_mesh", mesh=key, loss0=rec["loss0"],
+            reference_loss=ref["loss"], loss_rel=loss_rel,
+            tolerance=TRAIN_LOSS_RTOL, gnorm0=rec["gnorm0"],
+            reference_gnorm=ref["gnorm"], gnorm_rel=gnorm_rel,
+            gnorm_tolerance=TRAIN_MESH_GNORM_RTOL, leaves=len(errs),
+            grad_rms_vs_reference=max(e[0] for e in errs),
+            grad_max_vs_reference=max(e[1] for e in errs),
+            same_losses_every_rank=True, smi=smi)
+        if not loss_rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"[train_mesh] {key}: step-0 loss "
+                                 f"{rec['loss0']} vs {ref['loss']}")
+        if not gnorm_rel <= TRAIN_MESH_GNORM_RTOL:
+            raise AssertionError(f"[train_mesh] {key}: step-0 gradient "
+                                 f"norm {rec['gnorm0']} vs {ref['gnorm']}")
+        if not all(e[2] for e in errs):
+            raise AssertionError(f"[train_mesh] {key}: a step-0 gradient "
+                                 "leaf is not finite")
+        cut = {}
+        for name in ("f32", "bf16"):
+            c, want = ranks[0][f"{name}/{key}"], ranks[0][f"{name}/reference"]
+            cut[name] = dict(
+                loss_rel=abs(c["loss0"] - want["loss"]) / abs(want["loss"]),
+                grad_rms=max(e[0] for e in c["leaf_errs"]),
+                grad_max=max(e[1] for e in c["leaf_errs"]),
+                reference_peak_bytes=want["peak_bytes"])
+        log("train_mesh", mesh=key, layers=TRAIN_MESH_F32_LAYERS,
+            step0_vs_reference=cut, f32_leaf_tolerance=TRAIN_SAME, smi=smi)
+        errs = ranks[0][f"f32/{key}"]["leaf_errs"]
+        bad = [(i, e) for i, e in enumerate(errs) if _leaf_bad(*e, False)]
+        if bad or not errs:
+            raise AssertionError(f"[train_mesh] {key}: f32 step-0 gradient "
+                                 f"leaves (index, rms, max, finite) {bad} "
+                                 f"of {len(errs)}")
+    log("train_mesh", seconds=round(time.perf_counter() - t_phase, 3),
+        smi=smi)
+    return ranks
 
 
 # [plan]: the planned peak of a train step at mesh (1, 1) is held to within
@@ -3594,6 +3994,50 @@ def plan_vs_train(train_recs, cfgs=None):
     if both["cuda"]["flops"] != both["cpu"]["flops"]:
         raise AssertionError("[plan] FLOPs counted on fake CUDA and CPU "
                              "tensors differ")
+
+
+def plan_vs_train_mesh(ranks):
+    """The plan of [train_mesh]'s step on each of its meshes (``plan_cell``
+    at B x S and remat as it ran, the mesh as a mapping), held to every
+    rank's figures from this run: the static bytes equal, the peak
+    within PLAN_PEAK_RTOL of the rank's ``max_memory_allocated`` over the
+    steps; the record's ``coinciding_sizes`` (model-axis sizes the
+    counter cannot tell from replicated ones) logged beside."""
+    from repro_torch.launch import dryrun as D
+    from repro_torch.models.config import ShapeSpec
+    from repro_torch.train.train_step import StepConfig
+    cfg, data_cfg = _train_mesh_data()
+    b, seq = data_cfg.batch, data_cfg.seq
+    shape = ShapeSpec(f"train_{b}x{seq}", seq, b, "train")
+    for d, m in TRAIN_MESH_MESHES:
+        key = f"{d}x{m}"
+        tr = ranks[0][key]
+        p = D.plan_cell(cfg, shape, {"data": d, "model": m},
+                        StepConfig(remat=True), exact=False)
+        peak, static = p["peak_bytes_per_device"], \
+            p["static_bytes_per_device"]
+        statics = [r[key]["static_bytes"] for r in ranks]
+        peaks = [r[key]["step_peak_bytes"] for r in ranks]
+        rels = [(peak - c) / c for c in peaks]
+        log("plan", train_mesh=key, model=cfg.name, batch=b, seq=seq,
+            planned_static_bytes=static,
+            card_static_bytes=statics, planned_peak_bytes=peak,
+            card_step_peak_bytes=peaks, peak_rel_err=[round(x, 4)
+                                                      for x in rels],
+            tolerance=PLAN_PEAK_RTOL,
+            planned_dynamic_bytes=peak - static,
+            card_dynamic_bytes=[c - static for c in peaks],
+            coinciding_sizes=p["coinciding_sizes"],
+            counted_flops=p["flops_per_device"],
+            collective_ms=p["collective_s"] * 1e3, dominant=p["dominant"],
+            step_s=tr["step_s"], counted_on=p["counted_on"],
+            count_s=round(p["compile_s"], 3))
+        if any(c != static for c in statics):
+            raise AssertionError(f"[plan] {key}: planned static bytes "
+                                 f"{static} != the ranks' {statics}")
+        if not all(abs(x) <= PLAN_PEAK_RTOL for x in rels):
+            raise AssertionError(f"[plan] {key}: planned peak {peak} vs "
+                                 f"the ranks' {peaks}")
 
 
 def plan_vs_dist(front):
@@ -3842,12 +4286,12 @@ def time_halo(isabel_256, plain, smi):
 
 
 def group_only():
-    """The build, [stream]'s multi-card part, [dist] (with [plan]'s DDMS
-    peak held to it) and [group] alone:
-    on a host with two cards or more, the quickest check of the
-    multi-card paths.  Each part runs even where one before it failed
-    ([group] needs [dist]'s outputs); a failure prints its traceback and
-    the script then exits 1, naming the parts that failed."""
+    """The build, [train_mesh] (with [plan]'s mesh plans held to it),
+    [stream]'s multi-card part, and [dist] (with [plan]'s DDMS peak held
+    to it) and [group]: on a host with two cards or more (four for
+    [train_mesh]), the quickest check of the multi-card paths.  Each part runs even where one before it failed ([group] needs
+    [dist]'s outputs); a failure prints its traceback and the script then
+    exits 1, naming the parts that failed."""
     import traceback
     from repro_torch.fields.generators import make_field
     smi = nvidia_smi_line()
@@ -3863,6 +4307,9 @@ def group_only():
             log(name, failed=True)
             return None
 
+    ranks = part("train_mesh", train_mesh, smi)
+    if ranks is not None:
+        part("plan", plan_vs_train_mesh, ranks)
     part("stream", stream_cards, smi)
     isabel = make_field("isabel", (256, 256, 256), seed=SEED)
     dist = part("dist", phase_dist, isabel)
@@ -3897,10 +4344,10 @@ def main(argv):
                     "([timing] fields, no plain version, no result lines); "
                     "to compare two trees, time each in turns in one call")
     ap.add_argument("--group", action="store_true",
-                    help="only build and run [stream]'s multi-card part, "
-                    "[dist] and [group] (shards and NCCL ranks over the "
-                    "cards where the host has two or more); no result "
-                    "lines")
+                    help="only build and run [train_mesh] (4 cards), "
+                    "[stream]'s multi-card part, [dist] and [group] (shards "
+                    "and NCCL ranks over the cards where the host has two "
+                    "or more); no result lines")
     ap.add_argument("--stream-cards-child", nargs=2, metavar=("FIELD", "OUT"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args(argv)

@@ -81,11 +81,15 @@ def _fma(a, b, c):
     return s + (t + e)
 
 
-def _uniform(seed: int, step: int, shape, minval: float = 1e-6):
+def _uniform(seed: int, step: int, shape, minval: float = 1e-6, rows=None):
     """``jax.random.uniform(fold_in(PRNGKey(seed), step), shape, float64,
-    minval)``."""
+    minval)``, or its rows ``rows = (lo, hi)`` alone (the draws are
+    counters over the flat index, so any rows come out as in the whole)."""
     k1, k2 = _key(seed, step)
-    idx = np.arange(int(np.prod(shape)), dtype=np.uint64)
+    row = int(np.prod(shape[1:]))
+    lo, hi = rows or (0, shape[0])
+    idx = np.arange(lo * row, hi * row, dtype=np.uint64)
+    shape = (hi - lo,) + tuple(shape[1:])
     with np.errstate(over="ignore"):
         hi, lo = _threefry2x32(k1, k2, (idx >> np.uint64(32)).astype(np.uint32),
                                (idx & np.uint64(_M32)).astype(np.uint32))
@@ -96,19 +100,20 @@ def _uniform(seed: int, step: int, shape, minval: float = 1e-6):
         .reshape(shape)
 
 
-def host_batch_at(cfg: DataConfig, step: int):
+def host_batch_at(cfg: DataConfig, step: int, rows=None):
     """The batch of ``step`` as numpy int32 arrays ``tokens``, ``labels``
-    (batch, seq)."""
-    u = _uniform(cfg.seed, int(step), (cfg.batch, cfg.seq + 1))
+    (batch, seq); with ``rows = (lo, hi)`` only those rows of it (what a
+    rank of a mesh holds), equal to the whole batch's."""
+    u = _uniform(cfg.seed, int(step), (cfg.batch, cfg.seq + 1), rows=rows)
     # Zipf-ish marginal over the vocab via exponential transform
     z = np.clip((u ** (-0.5) - 1.0) * cfg.vocab / 40.0, 0,
                 cfg.vocab - 1).astype(np.int32)
     return {"tokens": z[:, :-1], "labels": z[:, 1:]}
 
 
-def batch_at(cfg: DataConfig, step: int, device=None):
-    """The batch of ``step`` as int32 tensors on ``device`` (``cuda``
-    unless named)."""
+def batch_at(cfg: DataConfig, step: int, device=None, rows=None):
+    """The batch of ``step`` (its rows ``rows = (lo, hi)`` alone, if
+    named) as int32 tensors on ``device`` (``cuda`` unless named)."""
     dev = _resolve_device(device)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
-            for k, v in host_batch_at(cfg, step).items()}
+            for k, v in host_batch_at(cfg, step, rows).items()}

@@ -32,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.distributed.tensor as _dtensor
 
 from .config import MLACfg, ModelConfig, MoECfg, SSMCfg
 
@@ -68,11 +69,152 @@ def cast(x):
     return x.to(COMPUTE_DTYPE)
 
 
+def weight(p):
+    """A parameter at use: cast to the compute dtype.  On a mesh (a
+    ``DTensor``) the cast copy is then gathered over the batch axes, FSDP's
+    all-gather per layer, and keeps its model-axis shards (the layout the
+    planner counts); its gradient is reduce-scattered back in the backward
+    pass.  A plain tensor is only cast."""
+    x = cast(p)
+    if isinstance(x, _dtensor.DTensor):
+        from repro_torch.train.sharding import gather_batch_axes
+        x = gather_batch_axes(x)
+        x._repro_weight = True
+    return x
+
+
+def _like(t, ref):
+    """``t``, a tensor made inside the forward (positions, a mask, a
+    running statistic), for use beside ``ref``: a replicated ``DTensor`` on
+    ``ref``'s mesh where ``ref`` is a ``DTensor`` (whose ops take no plain
+    tensor beside one), else ``t`` itself."""
+    if isinstance(ref, _dtensor.DTensor) \
+            and not isinstance(t, _dtensor.DTensor):
+        mesh = ref.device_mesh
+        return _dtensor.DTensor.from_local(
+            t, mesh, [_dtensor.Replicate()] * mesh.ndim, run_check=False)
+    return t
+
+
 def _einsum(eq, *ops):
     """``jnp.einsum``'s dtype rule: the operands are promoted to their
-    common type (bf16 with f32 gives f32), which is the result's type."""
+    common type (bf16 with f32 gives f32), which is the result's type.  On
+    a mesh (any operand a ``DTensor``) the layout is :func:`_einsum_mesh`'s."""
     dt = functools.reduce(torch.promote_types, (o.dtype for o in ops))
-    return torch.einsum(eq, *(o.to(dt) for o in ops))
+    ops = [o.to(dt) for o in ops]
+    if any(isinstance(o, _dtensor.DTensor) for o in ops):
+        return _einsum_mesh(eq, ops)
+    return torch.einsum(eq, *ops)
+
+
+def _einsum_mesh(eq, ops):
+    """An einsum of ``DTensor``s laid out as GSPMD lays out a dot (tensor
+    parallelism): :func:`_on_shards` with the equation's letters, a split
+    contracted letter giving partial sums that are all-reduced at once (a
+    row-parallel projection).  So activations stay replicated over the
+    model axis or sharded on a feature dim, never on the sequence, and the
+    values are the one-device einsum's up to the order of the sums."""
+    ins, out = eq.replace(" ", "").split("->")
+    return _on_shards(lambda *t: torch.einsum(eq, *t), ins.split(","), out,
+                      ops, sums=True)
+
+
+def _on_shards(fn, ins, out, ops, sums=False):
+    """``fn`` of the local shards of ``ops`` on a mesh, the result placed
+    back: the layout of a computation that runs shard by shard.
+    ``ins[i]`` names the dims of ``ops[i]`` by letter (``None``: used
+    whole, a mask or a number), ``out`` those of the result.  On each
+    mesh dim one letter is split: one that a sharded operand splits (the
+    largest such operand's where they differ) and that every operand
+    holding it divides evenly, and, unless ``sums``, that the result
+    keeps (``out`` may be a tuple, one entry per result of ``fn``: every
+    result then keeps it).  Operands holding it take their shard of it (a
+    replicated one is sliced in place), the others are used whole (their
+    gradients are partial sums), and the rest of the mesh dims are
+    gathered.  With ``sums`` a split letter the result lacks makes it a
+    partial sum, all-reduced at once.  The gradient of an activation operand comes
+    back in its own layout (:func:`_pin_grad`); a weight's (from
+    :func:`weight`) is reduce-scattered by its gather."""
+    ref = next(o for o in ops if isinstance(o, _dtensor.DTensor))
+    mesh = ref.device_mesh
+    ops = [_summed(_like(o, ref)) if lets is not None else o
+           for o, lets in zip(ops, ins)]
+    outs = (out,) if isinstance(out, str) else tuple(out)
+    rep = [_dtensor.Replicate()] * mesh.ndim
+    want = [list(rep) for _ in ops]
+    grad = [list(rep) for _ in ops]
+    out_pl = [list(rep) for _ in outs]
+    for k in range(mesh.ndim):
+        n = mesh.size(k)
+        split = {}          # letter -> the largest operand splitting it
+        for lets, o in zip(ins, ops):
+            pl = o.placements[k] if lets is not None else None
+            if pl is not None and pl.is_shard() and (
+                    sums or all(lets[pl.dim] in r for r in outs)):
+                c = lets[pl.dim]
+                split[c] = max(split.get(c, 0), o.numel())
+        for c in list(split):
+            if any(o.shape[lets.index(c)] % n for lets, o in zip(ins, ops)
+                   if lets is not None and c in lets):
+                del split[c]
+        if not split:
+            continue
+        c = max(split, key=split.get)
+        for i, lets in enumerate(ins):
+            if lets is None:
+                continue
+            if c in lets:
+                want[i][k] = grad[i][k] = _dtensor.Shard(lets.index(c))
+            else:
+                grad[i][k] = _dtensor.Partial()
+        for r, pl in zip(outs, out_pl):
+            pl[k] = _dtensor.Shard(r.index(c)) if c in r \
+                else _dtensor.Partial()
+    local = []
+    for o, lets, w, g in zip(ops, ins, want, grad):
+        if lets is None:
+            if isinstance(o, _dtensor.DTensor):
+                o = o.redistribute(mesh, rep).to_local()
+        else:
+            if not getattr(o, "_repro_weight", False):
+                o = _pin_grad(o)
+            o = o.redistribute(mesh, w).to_local(grad_placements=g)
+        local.append(o)
+    # every split is even, so from_local infers the global shape and
+    # strides (the local result may be a permuted view)
+    res = fn(*local)
+    res = tuple(_summed(_dtensor.DTensor.from_local(r, mesh, pl,
+                                                    run_check=False))
+                for r, pl in zip((res,) if isinstance(out, str) else res,
+                                 out_pl))
+    return res[0] if isinstance(out, str) else res
+
+
+def _summed(x):
+    """A ``DTensor`` holding partial sums (a reduction over a sharded dim)
+    all-reduced at once, so that no later op picks its layout, and its
+    gradient replicated likewise (:func:`_pin_grad`); anything else as it
+    is."""
+    if isinstance(x, _dtensor.DTensor) and any(pl.is_partial()
+                                      for pl in x.placements):
+        return _pin_grad(x.redistribute(x.device_mesh, [
+            _dtensor.Replicate() if pl.is_partial() else pl
+            for pl in x.placements]))
+    return x
+
+
+def _pin_grad(x):
+    """``x`` itself, but on a mesh its gradient in the backward pass is
+    brought to ``x``'s own placements first (a partial sum all-reduced);
+    left to itself, DTensor's propagation may pick, say, a
+    sequence-sharded layout for it, which later reshapes cannot take.
+    Off a mesh, ``x`` unchanged."""
+    if not isinstance(x, _dtensor.DTensor) or not x.requires_grad \
+            or any(pl.is_partial() for pl in x.placements):
+        return x
+    return _dtensor.DTensor.from_local(
+        x.to_local(), x.device_mesh, x.placements, run_check=False,
+        shape=x.shape, stride=x.stride())
 
 
 def _write_slot(buf, val, slot):
@@ -132,9 +274,9 @@ def rmsnorm_meta(d: int) -> Dict[str, PM]:
 
 def rmsnorm(params, x, eps: float = 1e-5):
     xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = _summed(torch.mean(xf * xf, dim=-1, keepdim=True))
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) \
-        * cast(params["scale"])
+        * weight(params["scale"])
 
 
 def rope_freqs(hd: int, theta: float):
@@ -147,6 +289,10 @@ def apply_rope(x, pos, theta: float = 10000.0):
     Interleaved (GPT-NeoX 'rotate every two') pairing: rotation pairs are
     adjacent dims (not the half-split rotation of most torch code), so a
     head_dim sharded over the model axis stays local."""
+    if isinstance(x, _dtensor.DTensor):
+        # on a mesh each rank rotates its shards of the batch and heads
+        return _on_shards(lambda x, p: apply_rope(x, p, theta),
+                          ["bshd", "bs"], "bshd", [x, pos])
     hd = x.shape[-1]
     freqs = torch.as_tensor(rope_freqs(hd, theta), dtype=torch.float32,
                             device=x.device)
@@ -178,6 +324,24 @@ def attention_meta(cfg: ModelConfig) -> Dict[str, PM]:
         m["bk"] = PM((Kv, hd), ("kv", "head"), "zeros")
         m["bv"] = PM((Kv, hd), ("kv", "head"), "zeros")
     return m
+
+
+def _gqa_heads(q, kv: int):
+    """``q`` (B, S, H, hd), ready to split its H heads into (``kv``, H /
+    ``kv``): a ``DTensor`` whose heads are sharded over devices that do
+    not divide ``kv`` (the KV heads, replicated then) has its heads
+    gathered first.  Off a mesh, ``q`` itself."""
+    if not isinstance(q, _dtensor.DTensor):
+        return q
+    mesh = q.device_mesh
+    n = 1
+    for k, pl in enumerate(q.placements):
+        if pl.is_shard(2):
+            n *= mesh.size(k)
+    if kv % n == 0:
+        return q
+    return q.redistribute(mesh, [_dtensor.Replicate() if pl.is_shard(2) else pl
+                                 for pl in q.placements])
 
 
 def _sdpa(q, k, v, mask):
@@ -216,9 +380,9 @@ def _flash_sdpa(q, k, v, causal: bool, window=None,
     dv = v.shape[-1]
     Sp = -(-S // qc) * qc
     Tp = -(-T // kc) * kc
-    qp = F.pad(q, (0, 0, 0, 0, 0, Sp - S))
-    kp = F.pad(k, (0, 0, 0, 0, 0, Tp - T))
-    vp = F.pad(v, (0, 0, 0, 0, 0, Tp - T))
+    qp = F.pad(q, (0, 0, 0, 0, 0, Sp - S)) if Sp > S else q
+    kp = F.pad(k, (0, 0, 0, 0, 0, Tp - T)) if Tp > T else k
+    vp = F.pad(v, (0, 0, 0, 0, 0, Tp - T)) if Tp > T else v
     nq, nk = Sp // qc, Tp // kc
     kb = kp.reshape(B, nk, kc, Kv, hd)
     vb = vp.reshape(B, nk, kc, Kv, dv)
@@ -267,7 +431,16 @@ def _flash_sdpa(q, k, v, causal: bool, window=None,
 
 def sdpa(q, k, v, *, causal: bool, window=None, mask=None):
     """Dispatch: flash for long sequences, materialized otherwise.
-    ``mask`` (decode write-mask etc.) forces the materialized path."""
+    ``mask`` (decode write-mask etc.) forces the materialized path.  On a
+    mesh each rank attends with its shards of the batch and the heads
+    (:func:`_on_shards`; the query heads gathered first where the KV heads
+    cannot split as they do)."""
+    if isinstance(q, _dtensor.DTensor):
+        return _on_shards(
+            lambda q, k, v, m: sdpa(q, k, v, causal=causal, window=window,
+                                    mask=m),
+            ["bshd", "bthd", "bthe", None], "bshe",
+            [_gqa_heads(q, k.shape[2]), k, v, mask])
     if mask is None and q.shape[1] > FLASH_THRESHOLD:
         return _flash_sdpa(q, k, v, causal, window)
     if mask is None:
@@ -290,13 +463,13 @@ def attention(cfg: ModelConfig, params, x, pos, cache=None):
     Train/prefill: cache=None, full sequence.  Decode: cache is a dict with
     k/v ring buffers and `idx` (tokens written so far); x is (B,1,d)."""
     B, S, d = x.shape
-    q = _einsum("bsd,dhk->bshk", x, cast(params["wq"]))
-    k = _einsum("bsd,dhk->bshk", x, cast(params["wk"]))
-    v = _einsum("bsd,dhk->bshk", x, cast(params["wv"]))
+    q = _einsum("bsd,dhk->bshk", x, weight(params["wq"]))
+    k = _einsum("bsd,dhk->bshk", x, weight(params["wk"]))
+    v = _einsum("bsd,dhk->bshk", x, weight(params["wv"]))
     if cfg.qkv_bias:
-        q = q + cast(params["bq"])
-        k = k + cast(params["bk"])
-        v = v + cast(params["bv"])
+        q = q + weight(params["bq"])
+        k = k + weight(params["bk"])
+        v = v + weight(params["bv"])
     q = apply_rope(q, pos, cfg.rope_theta)
     k = apply_rope(k, pos, cfg.rope_theta)
 
@@ -313,7 +486,7 @@ def attention(cfg: ModelConfig, params, x, pos, cache=None):
             span < torch.clamp(cache["idx"], max=T)
         o = sdpa(q, ck, cv, causal=False,
                  mask=written[None, None, None, None, :])
-    out = _einsum("bshk,hkd->bsd", o, cast(params["wo"]))
+    out = _einsum("bshk,hkd->bsd", o, weight(params["wo"]))
     return out, cache
 
 
@@ -354,12 +527,12 @@ def mla_attention(cfg: ModelConfig, params, x, pos, cache=None):
     B, S, d = x.shape
     H = cfg.n_heads
     cq = rmsnorm({"scale": params["q_norm"]},
-                 _einsum("bsd,dl->bsl", x, cast(params["wdq"])))
-    q = _einsum("bsl,lhk->bshk", cq, cast(params["wuq"]))
+                 _einsum("bsd,dl->bsl", x, weight(params["wdq"])))
+    q = _einsum("bsl,lhk->bshk", cq, weight(params["wuq"]))
     q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
 
-    dkv = _einsum("bsd,dl->bsl", x, cast(params["wdkv"]))
+    dkv = _einsum("bsd,dl->bsl", x, weight(params["wdkv"]))
     c_kv, k_rope1 = dkv[..., :m.kv_lora], dkv[..., m.kv_lora:]
     c_kv = rmsnorm({"scale": params["kv_norm"]}, c_kv)
     k_rope1 = apply_rope(k_rope1[:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
@@ -377,14 +550,14 @@ def mla_attention(cfg: ModelConfig, params, x, pos, cache=None):
         c_all, r_all = c_kv, k_rope1
         mask = None
 
-    kv = _einsum("btl,lhk->bthk", c_all, cast(params["wukv"]))
+    kv = _einsum("btl,lhk->bthk", c_all, weight(params["wukv"]))
     k_nope, vv = kv[..., :m.qk_nope], kv[..., m.qk_nope:]
     k = torch.cat(
         [k_nope, r_all[:, :, None, :].expand(
             k_nope.shape[:-1] + (m.qk_rope,))], dim=-1)
     qfull = torch.cat([q_nope, q_rope], dim=-1)
     o = sdpa(qfull, k, vv, causal=True, mask=mask)
-    out = _einsum("bshk,hkd->bsd", o, cast(params["wo"]))
+    out = _einsum("bshk,hkd->bsd", o, weight(params["wo"]))
     return out, cache
 
 
@@ -403,12 +576,12 @@ def mla_attention_absorbed(cfg: ModelConfig, params, x, pos, cache):
     if cache is None or S != 1:
         raise ValueError("absorbed MLA decodes one token against a cache")
     cq = rmsnorm({"scale": params["q_norm"]},
-                 _einsum("bsd,dl->bsl", x, cast(params["wdq"])))
-    q = _einsum("bsl,lhk->bshk", cq, cast(params["wuq"]))
+                 _einsum("bsd,dl->bsl", x, weight(params["wdq"])))
+    q = _einsum("bsl,lhk->bshk", cq, weight(params["wuq"]))
     q_nope, q_rope = q[..., :m.qk_nope], q[..., m.qk_nope:]
     q_rope = apply_rope(q_rope, pos, cfg.rope_theta)
 
-    dkv = _einsum("bsd,dl->bsl", x, cast(params["wdkv"]))
+    dkv = _einsum("bsd,dl->bsl", x, weight(params["wdkv"]))
     c_kv, k_rope1 = dkv[..., :m.kv_lora], dkv[..., m.kv_lora:]
     c_kv = rmsnorm({"scale": params["kv_norm"]}, c_kv)
     k_rope1 = apply_rope(k_rope1[:, :, None, :], pos, cfg.rope_theta)[:, :, 0]
@@ -419,7 +592,7 @@ def mla_attention_absorbed(cfg: ModelConfig, params, x, pos, cache):
     cache = dict(cache, c=cc, r=cr, idx=cache["idx"] + 1)
     T = cc.shape[1]
 
-    wukv = cast(params["wukv"])                      # (lora, H, nope+v)
+    wukv = weight(params["wukv"])                      # (lora, H, nope+v)
     wk = wukv[..., :m.qk_nope]                       # (lora, H, nope)
     wv = wukv[..., m.qk_nope:]                       # (lora, H, v)
     # absorb: q_eff[l] = sum_k q_nope[k] * wk[l,h,k]
@@ -433,7 +606,7 @@ def mla_attention_absorbed(cfg: ModelConfig, params, x, pos, cache):
     w = torch.softmax(logits, dim=-1).to(cc.dtype)
     o_lat = _einsum("bhst,btl->bshl", w, cc)            # (B,1,H,lora)
     o = _einsum("bshl,lhk->bshk", o_lat, wv)            # (B,1,H,v)
-    out = _einsum("bshk,hkd->bsd", o, cast(params["wo"]))
+    out = _einsum("bshk,hkd->bsd", o, weight(params["wo"]))
     return out, cache
 
 
@@ -462,9 +635,9 @@ def mlp_meta(cfg: ModelConfig) -> Dict[str, PM]:
 
 
 def mlp(params, x):
-    g = _einsum("bsd,df->bsf", x, cast(params["wg"]))
-    u = _einsum("bsd,df->bsf", x, cast(params["wu"]))
-    return _einsum("bsf,fd->bsd", F.silu(g) * u, cast(params["wd"]))
+    g = _einsum("bsd,df->bsf", x, weight(params["wg"]))
+    u = _einsum("bsd,df->bsf", x, weight(params["wu"]))
+    return _einsum("bsf,fd->bsd", F.silu(g) * u, weight(params["wd"]))
 
 
 def moe_meta(cfg: ModelConfig) -> Dict[str, PM]:
@@ -475,6 +648,34 @@ def moe_meta(cfg: ModelConfig) -> Dict[str, PM]:
             "wg": PM((E, d, fe), ("experts", "embed", "mlp")),
             "wu": PM((E, d, fe), ("experts", "embed", "mlp")),
             "wd": PM((E, fe, d), ("experts", "mlp", "embed"))}
+
+
+def _whole(t):
+    """``t`` whole on this rank: a ``DTensor`` replicated and taken as its
+    local tensor (differentiable both ways), a plain tensor as it is."""
+    if not isinstance(t, _dtensor.DTensor):
+        return t
+    mesh = t.device_mesh
+    return t.redistribute(mesh, [_dtensor.Replicate()] * mesh.ndim).to_local()
+
+
+def _placed_as(t, ref):
+    """``t``, whole on every rank, placed as the ``DTensor`` ``ref`` (its
+    partial sums as replicas; a plain ``ref``: ``t`` itself)."""
+    if not isinstance(ref, _dtensor.DTensor):
+        return t
+    return _like(t, ref).redistribute(
+        ref.device_mesh, [_dtensor.Replicate() if pl.is_partial() else pl
+                          for pl in ref.placements])
+
+
+def _gate(logits, k: int):
+    """(probs, gate values, expert ids) of router logits: softmax, top-k,
+    the top k renormalized."""
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)        # (B,S,k)
+    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+    return probs, gate_vals, gate_idx
 
 
 def moe(cfg: ModelConfig, params, x):
@@ -489,14 +690,21 @@ def moe(cfg: ModelConfig, params, x):
     mo = cfg.moe
     B, S, d = x.shape
     E, k = mo.n_experts, mo.top_k
-    logits = _einsum("bsd,de->bse", x, cast(params["router"])).float()
-    probs = torch.softmax(logits, dim=-1)
-    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)        # (B,S,k)
-    gate_vals = gate_vals / torch.sum(gate_vals, dim=-1, keepdim=True)
+    logits = _einsum("bsd,de->bse", x, weight(params["router"])).float()
+    if isinstance(logits, _dtensor.DTensor):
+        # on a mesh each rank gates its own tokens (all experts' logits)
+        probs, gate_vals, gate_idx = _on_shards(
+            lambda lg: _gate(lg, k), ["bse"], ("bse", "bsk", "bsk"),
+            [logits])
+    else:
+        probs, gate_vals, gate_idx = _gate(logits, k)
     cap = int(np.ceil(mo.capacity_factor * B * S * k / E))
 
     Tk = B * S * k
-    expert = gate_idx.reshape(Tk)
+    # the routing needs every token's expert id, as under GSPMD: on a mesh
+    # it runs on a replicated copy (``_whole``), and the result is placed
+    # as ``x`` again (``_placed_as``)
+    expert = _whole(gate_idx).reshape(Tk)
     # position within expert queue: rank by stable sort over expert id
     order = torch.argsort(expert, stable=True)                # (Tk,)
     counts = torch.zeros(E, dtype=expert.dtype, device=x.device) \
@@ -507,21 +715,21 @@ def moe(cfg: ModelConfig, params, x):
     keep = pos < cap
     slot = torch.where(keep, expert * cap + pos, E * cap)     # dump slot
 
-    xf = x.reshape(B * S, 1, d).expand(B * S, k, d).reshape(Tk, d)
+    xf = _whole(x).reshape(B * S, 1, d).expand(B * S, k, d).reshape(Tk, d)
     buf = torch.zeros((E * cap + 1, d), dtype=x.dtype, device=x.device) \
         .index_put((slot,), xf)
-    xe = buf[:E * cap].reshape(E, cap, d)
-    h = F.silu(_einsum("ecd,edf->ecf", xe, cast(params["wg"]))) \
-        * _einsum("ecd,edf->ecf", xe, cast(params["wu"]))
-    ye = _einsum("ecf,efd->ecd", h, cast(params["wd"]))
-    yf = ye.reshape(E * cap, d)
+    xe = _like(buf[:E * cap].reshape(E, cap, d), x)
+    h = F.silu(_einsum("ecd,edf->ecf", xe, weight(params["wg"]))) \
+        * _einsum("ecd,edf->ecf", xe, weight(params["wu"]))
+    ye = _einsum("ecf,efd->ecd", h, weight(params["wd"]))
+    yf = _whole(ye.reshape(E * cap, d))
     ytok = torch.where(keep[:, None], yf[torch.clamp(slot, max=E * cap - 1)],
                        0.0)
     out = (ytok.reshape(B * S, k, d)
-           * gate_vals.reshape(B * S, k, 1).to(x.dtype)).sum(1)
-    out = out.reshape(B, S, d)
+           * _whole(gate_vals).reshape(B * S, k, 1).to(x.dtype)).sum(1)
+    out = _placed_as(out.reshape(B, S, d), x)
     # load-balancing aux loss (Switch style)
-    frac_tokens = counts.float() / Tk
+    frac_tokens = _like(counts.float() / Tk, probs)
     frac_probs = torch.mean(probs, dim=(0, 1))
     aux = E * torch.sum(frac_tokens * frac_probs)
     return out, aux
@@ -594,24 +802,39 @@ def ssd_chunked(x, a, B, C, chunk):
 
 
 def mamba2(cfg: ModelConfig, params, x, cache=None):
+    zxbcdt = _einsum("bsd,de->bse", x, weight(params["in_proj"]))
+    if cache is None and isinstance(zxbcdt, _dtensor.DTensor):
+        # on a mesh each rank mixes its own rows, every feature and head
+        # (the split of the projection does not follow the model shards)
+        names = ("conv_w", "conv_b", "dt_bias", "A_log", "D", "norm")
+        y = _on_shards(
+            lambda t, *w: _mamba2_mix(cfg, dict(zip(names, w)), t, None)[0],
+            ["bsf", "kc", "c", "h", "h", "h", "e"], "bse",
+            [zxbcdt] + [params[k] for k in names])
+    else:
+        y, cache = _mamba2_mix(cfg, params, zxbcdt, cache)
+    return _einsum("bsd,de->bse", y, weight(params["out_proj"])), cache
+
+
+def _mamba2_mix(cfg: ModelConfig, params, zxbcdt, cache):
+    """The SSM block between its projections: (y, cache)."""
     s = cfg.ssm
     d = cfg.d_model
     di = s.d_inner(d)
     nh = s.n_heads(d)
     N = s.d_state
-    B_, S, _ = x.shape
-    zxbcdt = _einsum("bsd,de->bse", x, cast(params["in_proj"]))
+    B_, S, _ = zxbcdt.shape
     z, xin, Bc, Cc, dt = torch.split(zxbcdt, [di, di, N, N, nh], dim=-1)
     xbc = torch.cat([xin, Bc, Cc], dim=-1)                # conv features
-    w = cast(params["conv_w"])                            # (K, di+2N)
+    w = weight(params["conv_w"])                            # (K, di+2N)
     if cache is None:
         pad = F.pad(xbc, (0, 0, s.d_conv - 1, 0))
         conv = sum(pad[:, i:i + S] * w[i] for i in range(s.d_conv))
-        conv = F.silu(conv + cast(params["conv_b"]))
+        conv = F.silu(conv + weight(params["conv_b"]))
     else:
         buf = torch.cat([cache["conv"], xbc], dim=1)[:, 1:]
         conv = F.silu((buf * w[None]).sum(1, keepdim=True)
-                      + cast(params["conv_b"]))
+                      + weight(params["conv_b"]))
         cache = dict(cache, conv=buf)
     xin, Bc, Cc = torch.split(conv, [di, N, N], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"].float())
@@ -634,8 +857,7 @@ def mamba2(cfg: ModelConfig, params, x, cache=None):
         y = y.reshape(B_, 1, nh, s.head_dim)
     y = y + xh * params["D"].to(xh.dtype)[:, None]
     y = y.reshape(B_, S, di)
-    y = rmsnorm({"scale": params["norm"]}, y * F.silu(z))
-    return _einsum("bsd,de->bse", y, cast(params["out_proj"])), cache
+    return rmsnorm({"scale": params["norm"]}, y * F.silu(z)), cache
 
 
 def mamba2_cache(cfg: ModelConfig, batch: int, device=None):

@@ -25,6 +25,7 @@ import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed.tensor as _dtensor
 
 from . import layers as L
 from .config import ModelConfig
@@ -146,7 +147,7 @@ def abstract_params(cfg: ModelConfig):
 
 def _block_apply(cfg: ModelConfig, p, x, pos, shared, layer_idx):
     """One decoder block, training/prefill path (no caches)."""
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = L._like(torch.zeros((), dtype=torch.float32, device=x.device), x)
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     if cfg.ssm is not None:
         mix, _ = L.mamba2(cfg, p["mixer"], h, None)
@@ -181,12 +182,12 @@ def _run_block(fn, remat: bool, *args):
 
 def _unembed(cfg: ModelConfig, params, x):
     unemb = params.get("unembed")
-    w = cast(unemb) if unemb is not None else cast(params["embed"]).T
+    w = L.weight(unemb) if unemb is not None else L.weight(params["embed"]).T
     logits = L._einsum("bsd,dv->bsv", x, w).float()
     # mask the padded vocab tail (vocab is padded for clean TP sharding)
     if cfg.vocab_padded != cfg.vocab:
-        logits = torch.where(
-            torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab,
+        logits = torch.where(L._like(
+            torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab, x),
             logits, -1e30)
     return logits
 
@@ -195,14 +196,54 @@ def _embed(params, tokens):
     """``cast(embed)[tokens]``, gathered before the cast (same values, and
     only the gathered rows are converted)."""
     emb = params["embed"]
+    if isinstance(emb, _dtensor.DTensor):
+        return cast(_embed_mesh(emb, tokens))
     return cast(emb[torch.as_tensor(tokens, device=emb.device).long()])
+
+
+def _embed_mesh(emb, tokens):
+    """The f32 rows of ``tokens`` from a ``DTensor`` embedding table on a
+    mesh (vocab parallel): the table gathered over the batch axes (FSDP,
+    as :func:`layers.weight` gathers, in f32 so that the rows' gradient
+    sums in f32 as off a mesh), each rank looks up the tokens its vocab
+    shard holds, and the rows are summed over the vocab split (one rank
+    holds each row, so the sum is exact)."""
+    from repro_torch.train.sharding import gather_batch_axes
+    table = gather_batch_axes(emb)
+    mesh = table.device_mesh
+    tokens = L._like(torch.as_tensor(tokens, device=table.device).long(),
+                     table)
+    # the tokens' layout on every mesh dim the vocab is not split over
+    tok_pl, out_pl, grad_pl = [], [], []
+    lo, n = 0, table.to_local().shape[0]
+    for k, (pt, pe) in enumerate(zip(tokens.placements, table.placements)):
+        if pe.is_shard(0):
+            tok_pl.append(_dtensor.Replicate())
+            out_pl.append(_dtensor.Partial())
+            grad_pl.append(pe)
+            lo = lo * mesh.size(k) + mesh.get_coordinate()[k]
+        elif pe.is_shard():
+            raise ValueError(f"embedding table split on dim {pe.dim} over "
+                             f"mesh dim {k} after the FSDP gather")
+        else:
+            tp = pt if pt.is_shard() else _dtensor.Replicate()
+            tok_pl.append(tp)
+            out_pl.append(tp)
+            grad_pl.append(_dtensor.Partial() if tp.is_shard()
+                           else _dtensor.Replicate())
+    idx = tokens.redistribute(mesh, tok_pl).to_local() - lo * n
+    held = (idx >= 0) & (idx < n)
+    rows = table.to_local(grad_placements=grad_pl)[idx.clamp(0, n - 1)]
+    rows = torch.where(held[..., None], rows, 0.0)
+    return L._summed(_dtensor.DTensor.from_local(rows, mesh, out_pl,
+                                          run_check=False))
 
 
 def _embed_inputs(cfg: ModelConfig, params, tokens, frontend_embeds):
     x = _embed(params, tokens)
     if cfg.frontend == "vision_stub" and frontend_embeds is not None:
         fe = torch.as_tensor(frontend_embeds, device=x.device)
-        pe = L._einsum("bpd,de->bpe", cast(fe), cast(params["patch_proj"]))
+        pe = L._einsum("bpd,de->bpe", cast(fe), L.weight(params["patch_proj"]))
         x = torch.cat([pe, x], dim=1)
     return x
 
@@ -218,9 +259,9 @@ def lm_apply(cfg: ModelConfig, params, tokens, frontend_embeds=None,
     x = _constrain(_embed_inputs(cfg, params, tokens, frontend_embeds),
                    "tokens")
     B, S, _ = x.shape
-    pos = torch.arange(S, device=x.device).expand(B, S)
+    pos = L._like(torch.arange(S, device=x.device).expand(B, S), x)
     shared = params.get("shared_attn")
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    aux = L._like(torch.zeros((), dtype=torch.float32, device=x.device), x)
     for i in range(cfg.n_layers):
         x, a = _run_block(functools.partial(_block_apply, cfg), remat,
                           _index(params["layers"], i), x, pos, shared, i)
@@ -233,11 +274,12 @@ def lm_apply(cfg: ModelConfig, params, tokens, frontend_embeds=None,
 def _enc_block(cfg, p, x):
     h = L.rmsnorm(p["ln1"], x, cfg.norm_eps)
     # bidirectional self-attention: full mask
-    q = L._einsum("bsd,dhk->bshk", h, cast(p["attn"]["wq"]))
-    k = L._einsum("bsd,dhk->bshk", h, cast(p["attn"]["wk"]))
-    v = L._einsum("bsd,dhk->bshk", h, cast(p["attn"]["wv"]))
+    q = L._einsum("bsd,dhk->bshk", h, L.weight(p["attn"]["wq"]))
+    k = L._einsum("bsd,dhk->bshk", h, L.weight(p["attn"]["wk"]))
+    v = L._einsum("bsd,dhk->bshk", h, L.weight(p["attn"]["wv"]))
     o = L.sdpa(q, k, v, causal=False)
-    x = x + L._einsum("bshk,hkd->bsd", o, cast(p["attn"]["wo"])).to(x.dtype)
+    x = x + L._einsum("bshk,hkd->bsd", o,
+                      L.weight(p["attn"]["wo"])).to(x.dtype)
     h = L.rmsnorm(p["ln2"], x, cfg.norm_eps)
     return x + L.mlp(p["ffn"], h).to(x.dtype)
 
@@ -246,7 +288,7 @@ def _encoder_apply(cfg: ModelConfig, params, frames, remat: bool = False):
     """frames: (B, T_enc, d) precomputed frame embeddings (conv stub)."""
     params = _params(params)
     frames = torch.as_tensor(frames, device=params["frame_proj"].device)
-    x = L._einsum("btd,de->bte", cast(frames), cast(params["frame_proj"]))
+    x = L._einsum("btd,de->bte", cast(frames), L.weight(params["frame_proj"]))
     for i in range(cfg.enc_layers):
         x = _constrain(_run_block(functools.partial(_enc_block, cfg), remat,
                                   _index(params["enc"], i), x), "tokens")
@@ -254,14 +296,14 @@ def _encoder_apply(cfg: ModelConfig, params, frames, remat: bool = False):
 
 
 def _cross_attend(cfg, p, x, enc_kv):
-    q = L._einsum("bsd,dhk->bshk", x, cast(p["wq"]))
+    q = L._einsum("bsd,dhk->bshk", x, L.weight(p["wq"]))
     o = L.sdpa(q, enc_kv["k"], enc_kv["v"], causal=False)
-    return L._einsum("bshk,hkd->bsd", o, cast(p["wo"]))
+    return L._einsum("bshk,hkd->bsd", o, L.weight(p["wo"]))
 
 
 def _enc_kv(p, enc_out):
-    return {"k": L._einsum("btd,dhk->bthk", enc_out, cast(p["wk"])),
-            "v": L._einsum("btd,dhk->bthk", enc_out, cast(p["wv"]))}
+    return {"k": L._einsum("btd,dhk->bthk", enc_out, L.weight(p["wk"])),
+            "v": L._einsum("btd,dhk->bthk", enc_out, L.weight(p["wv"]))}
 
 
 def _dec_block(cfg, p, x, pos, enc_out):
@@ -280,14 +322,14 @@ def _encdec_apply(cfg: ModelConfig, params, tokens, frames,
     enc_out = _encoder_apply(cfg, params, frames, remat)
     x = _constrain(_embed(params, tokens), "tokens")
     B, S, _ = x.shape
-    pos = torch.arange(S, device=x.device).expand(B, S)
+    pos = L._like(torch.arange(S, device=x.device).expand(B, S), x)
     for i in range(cfg.n_layers):
         x = _constrain(_run_block(functools.partial(_dec_block, cfg), remat,
                                   _index(params["layers"], i), x, pos,
                                   enc_out), "tokens")
     x = L.rmsnorm(params["ln_f"], x, cfg.norm_eps)
     return _constrain(_unembed(cfg, params, x), "logits"), \
-        torch.zeros((), dtype=torch.float32, device=x.device)
+        L._like(torch.zeros((), dtype=torch.float32, device=x.device), x)
 
 
 # ---------------------------------------------------------------------------

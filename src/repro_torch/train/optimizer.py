@@ -29,6 +29,8 @@ from typing import Any, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.distributed.tensor as _dtensor
 
 from . import pytree
 
@@ -51,8 +53,11 @@ class OptState(NamedTuple):
 
 
 def init_opt_state(params) -> OptState:
-    """Zero f32 moments on the parameters' devices, step 0 (host)."""
+    """Zero f32 moments on the parameters' devices (placed as the
+    parameters on a mesh), step 0 (host)."""
     def zeros(p):
+        if isinstance(p, _dtensor.DTensor):
+            return torch.zeros_like(p, dtype=torch.float32)
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
     return OptState(torch.zeros((), dtype=torch.int32),
                     pytree.tree_map(zeros, params),
@@ -78,11 +83,46 @@ def lr_at(cfg: OptConfig, step):
                         dtype=torch.float32)
 
 
+def _local(x):
+    """The part of ``x`` this rank holds (``x`` itself off a mesh)."""
+    return x.to_local() if isinstance(x, _dtensor.DTensor) else x
+
+
+def _mesh_sum(vec, mesh):
+    """``vec`` summed over the ranks of ``mesh``, in place: one
+    all-reduce where the mesh is the whole process group, else one per
+    mesh dimension."""
+    if mesh.size() == dist.get_world_size():
+        dist.all_reduce(vec)
+        return
+    for k in range(mesh.ndim):
+        if mesh.size(k) > 1:
+            dist.all_reduce(vec, group=mesh.get_group(k))
+
+
 def global_norm(tree):
-    """sqrt of the sum over leaves of each leaf's f32 sum of squares."""
+    """sqrt of the sum over leaves of each leaf's f32 sum of squares.  On a
+    mesh each leaf's sum of squares is the sum of its shards' (a rank
+    that holds a replica counts only where it is the first along every
+    mesh dimension the leaf is replicated over), all leaves' taken in one
+    all-reduce of a vector, then summed in leaf order as off a mesh."""
     leaves = pytree.tree_leaves(tree)
-    total = sum(torch.sum(x.float() ** 2) for x in leaves)
-    return torch.sqrt(total)
+    if not any(isinstance(x, _dtensor.DTensor) for x in leaves):
+        total = sum(torch.sum(x.float() ** 2) for x in leaves)
+        return torch.sqrt(total)
+    mesh = next(x for x in leaves
+                if isinstance(x, _dtensor.DTensor)).device_mesh
+    coord = mesh.get_coordinate()
+    sums = []
+    for x in leaves:
+        s = torch.sum(_local(x).float() ** 2)
+        if any(not pl.is_shard() and c for pl, c in zip(x.placements,
+                                                        coord)):
+            s = torch.zeros_like(s)
+        sums.append(s)
+    vec = torch.stack(sums)
+    _mesh_sum(vec, mesh)
+    return torch.sqrt(sum(vec.unbind()))
 
 
 @torch.no_grad()
@@ -105,8 +145,11 @@ def adamw_update(cfg: OptConfig, params, grads, state: OptState):
     # the reference's eager bias corrections: f64, rounded to f32 at use
     c1 = torch.full((), 1 - b1 ** step, dtype=torch.float32, device=dev)
     c2 = torch.full((), 1 - b2 ** step, dtype=torch.float32, device=dev)
-    for p, g, m, v in zip(*map(pytree.tree_leaves,
-                               (params, grads, state.m, state.v))):
+    for leaves in zip(*map(pytree.tree_leaves,
+                           (params, grads, state.m, state.v))):
+        # on a mesh each rank updates its own shards: m and v are placed
+        # as the parameters, so no leaf needs a collective
+        p, g, m, v = map(_local, leaves)
         g = g.float() if g.dtype != torch.float32 else g
         g.mul_(scale)
         tmp = g * (1 - b2)

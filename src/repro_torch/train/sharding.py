@@ -23,6 +23,15 @@ reference's ``PartitionSpec`` does.  A mesh is a
 size (the planner and the tests use the mapping; nothing is allocated).
 :func:`param_shardings` gives ``torch.distributed.tensor`` placements per
 mesh dimension in place of ``NamedSharding``.
+
+On a ``DeviceMesh`` the counterpart of ``jax.device_put(x,
+NamedSharding)`` is :func:`place` (a whole tensor, equal on every rank,
+kept only as this rank's part), over a tree :func:`place_tree`; seeded
+parameters are made leaf by leaf and placed at once
+(:func:`init_placed`), so no rank ever holds the whole tree; a batch is
+built by each rank for its own rows only (:func:`batch_rows`,
+:func:`place_rows`).  The placed values are the one-device values: a
+sharding is a layout.
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ import typing
 from dataclasses import dataclass, field
 from typing import Dict, Optional, Tuple
 
+import torch
 import torch.distributed.device_mesh as _device_mesh
 import torch.distributed.tensor as _dtensor
 
@@ -167,6 +177,122 @@ def param_shardings(meta, rules: ShardingRules, mesh: Mesh):
         lambda pm: placements(spec_for_param(pm, rules, mesh), mesh), meta)
 
 
+def _local_part(x, placements, mesh):
+    """The part of the whole tensor ``x`` that this rank holds under
+    ``placements`` on ``mesh`` (``Shard`` splits as ``torch.chunk``, mesh
+    dimensions in order, as ``DTensor`` nests them)."""
+    coord = mesh.get_coordinate()
+    for k, pl in enumerate(placements):
+        if isinstance(pl, _dtensor.Shard):
+            x = x.chunk(mesh.size(k), dim=pl.dim)[coord[k]]
+    return x
+
+
+def mesh_device(mesh):
+    """This rank's device of ``mesh``: its current card for a ``cuda``
+    mesh, else the mesh's device type."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def place(x, placements, mesh, device=None):
+    """``x``, the whole tensor (equal on every rank), as a ``DTensor`` on
+    ``mesh`` with ``placements``: the counterpart of ``jax.device_put(x,
+    NamedSharding(mesh, spec))``.  The rank keeps a contiguous copy of its
+    part, on ``device`` (``x``'s unless named); nothing is sent.  Every
+    split must be even, as the specs' divisibility check makes it."""
+    for k, pl in enumerate(placements):
+        if isinstance(pl, _dtensor.Shard) \
+                and x.shape[pl.dim] % mesh.size(k):
+            raise ValueError(f"dim {pl.dim} of {tuple(x.shape)} does not "
+                             f"split evenly over mesh dim {k}")
+    local = _local_part(x, placements, mesh)
+    local = local.contiguous().clone() if device is None else local.to(
+        device, copy=True, memory_format=torch.contiguous_format)
+    return _dtensor.DTensor.from_local(
+        local, mesh, placements, run_check=False, shape=x.shape,
+        stride=_contiguous_stride(x.shape))
+
+
+def _contiguous_stride(shape):
+    stride, acc = [], 1
+    for n in reversed(tuple(shape)):
+        stride.append(acc)
+        acc *= n
+    return tuple(reversed(stride))
+
+
+def place_tree(tree, shardings, mesh):
+    """:func:`place` over the leaves of a tree of whole tensors, with the
+    placements tree ``shardings`` (:func:`param_shardings`' form)."""
+    if isinstance(tree, dict):
+        return {k: place_tree(tree[k], shardings[k], mesh)
+                for k in sorted(tree)}
+    return place(tree, shardings, mesh)
+
+
+def init_placed(meta, seed: int, rules: ShardingRules, mesh, device):
+    """Seeded f32 parameters for every ``PM`` of ``meta``, placed on
+    ``mesh`` by :func:`param_shardings`: each leaf is drawn whole from one
+    generator seeded with ``seed`` on ``device``, in the order of
+    ``init_tree``, and kept only as this rank's part before the next is
+    drawn; so the values are ``init_tree``'s (``init_params(cfg, seed)``'s
+    on that device) and a rank holds at most one whole leaf at a time."""
+    from repro_torch.models.layers import init_param
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+
+    def walk(m):
+        if isinstance(m, PM):
+            whole = init_param(gen, m)
+            x = place(whole, placements(spec_for_param(m, rules, mesh),
+                                        mesh), mesh)
+            del whole
+            return x
+        return {k: walk(m[k]) for k in sorted(m)}
+
+    return walk(meta)
+
+
+def _batch_coord(rules: ShardingRules, mesh):
+    """(index, count): this rank's position along the batch axes of
+    ``mesh`` (row-major over them, as ``DTensor`` nests ``Shard(0)``) and
+    their number of devices."""
+    sizes = axis_sizes(mesh)
+    names = list(sizes)
+    coord = mesh.get_coordinate()
+    idx, n = 0, 1
+    for a in names:
+        if a in rules.batch_axes:
+            idx = idx * sizes[a] + coord[names.index(a)]
+            n *= sizes[a]
+    return idx, n
+
+
+def batch_rows(n: int, rules: ShardingRules, mesh):
+    """(lo, hi): the rows of a global batch of ``n`` that this rank holds
+    under :func:`batch_spec` (all ``n`` where the batch devices do not
+    divide it: the batch is then replicated, as the planner's
+    ``_input_spec`` has it)."""
+    idx, count = _batch_coord(rules, mesh)
+    if n % count:
+        return 0, n
+    per = n // count
+    return idx * per, (idx + 1) * per
+
+
+def place_rows(local, n: int, rules: ShardingRules, mesh):
+    """A batch input as a ``DTensor``: ``local`` holds this rank's rows
+    :func:`batch_rows` of a global batch of ``n`` (the rank built only
+    those); batch over the batch axes, every other dim replicated."""
+    _, count = _batch_coord(rules, mesh)
+    spec = batch_spec(rules, 1) if n % count == 0 else P()
+    shape = (n,) + tuple(local.shape[1:])
+    return _dtensor.DTensor.from_local(
+        local.contiguous(), mesh, placements(spec, mesh), run_check=False,
+        shape=shape, stride=_contiguous_stride(shape))
+
+
 def batch_spec(rules: ShardingRules, ndim: int, seq_axis: int = 1) -> P:
     """Tokens/labels: batch over DP axes (+ optional SP on the seq axis)."""
     parts = [tuple(rules.batch_axes)] + [None] * (ndim - 1)
@@ -223,6 +349,22 @@ def set_rules(rules: Optional[ShardingRules], mesh: Optional[Mesh],
     activations' shares from it)."""
     global _CURRENT
     _CURRENT = (rules, mesh, observe) if rules is not None else None
+
+
+def gather_batch_axes(x):
+    """The ``DTensor`` ``x`` replicated over the batch axes (of the
+    installed rules, else the mesh's ``pod`` and ``data`` dims), its other
+    placements kept: how a parameter's compute copy is used (FSDP
+    gathers the ``embed`` shards per layer; tensor parallelism keeps the
+    model-axis ones)."""
+    mesh = x.device_mesh
+    bax = _CURRENT[0].batch_axes if _CURRENT is not None \
+        else ("pod", "data")
+    want = [_dtensor.Replicate() if name in bax else pl
+            for name, pl in zip(mesh.mesh_dim_names, x.placements)]
+    if want == list(x.placements):
+        return x
+    return x.redistribute(mesh, want)
 
 
 def constrain(x, kind: str):

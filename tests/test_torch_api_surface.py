@@ -83,7 +83,7 @@ DOCUMENTED = {
                                         "unless named); returns a "
                                         "ParamTree",
     "data.pipeline.batch_at()": "device= (cuda unless named): int32 "
-                                "tensors on it",
+                                "tensors on it; rows= as host_batch_at",
     "train.optimizer.Dict": "a typing name the reference imports and does "
                             "not use",
     "train.optimizer.OptState()": "step a torch.Tensor (0-d int32, on the "
@@ -107,9 +107,10 @@ DOCUMENTED = {
                             "annotation",
     "train.checkpoint.Tuple": "a typing name of the reference's shardings "
                               "annotation",
-    "train.checkpoint.load_checkpoint()": "device= (cuda unless named) in "
-                                          "place of shardings: the "
-                                          "single-card re-placement",
+    "train.checkpoint.load_checkpoint()": "device= (cuda unless named), "
+                                          "and shardings= (the parameters' "
+                                          "placements, m and v alike) "
+                                          "with mesh=",
     "train.compression.Tuple": "a typing name the reference imports and "
                                "does not use",
     "train.compression.allreduce_compressed()": "group= (a torch."
@@ -117,9 +118,31 @@ DOCUMENTED = {
                                                 "the default if None) in "
                                                 "place of axis_name",
     "launch.train.batch_at()": "imported from data.pipeline: device=",
+    "launch.train.mesh_batch": "a step's batch on a DeviceMesh, each rank "
+                               "building its own rows (run's mesh path)",
+    "launch.train.mesh_rules": "the ShardingRules of a training DeviceMesh "
+                               "(run's mesh path)",
+    "data.pipeline.host_batch_at()": "rows= (lo, hi): a mesh rank's rows "
+                                     "of the batch alone",
+    "models.layers.weight": "a parameter at use: the cast, FSDP-gathered on "
+                            "a mesh (the reference leaves it to GSPMD)",
+    "train.sharding.batch_rows": "the rows of a batch a mesh rank holds "
+                                 "(the reference's batch is placed whole)",
+    "train.sharding.gather_batch_axes": "a DTensor replicated over the "
+                                        "batch axes: FSDP's gather",
+    "train.sharding.init_placed": "seeded parameters made leaf by leaf and "
+                                  "placed on a DeviceMesh",
+    "train.sharding.mesh_device": "a mesh rank's device",
+    "train.sharding.place": "jax.device_put(x, NamedSharding) for a "
+                            "DeviceMesh",
+    "train.sharding.place_rows": "a rank's rows of a batch input as a "
+                                 "DTensor",
+    "train.sharding.place_tree": "place over a tree (device_put of a tree)",
     "launch.train.load_checkpoint()": "imported from train.checkpoint: "
-                                      "device=",
-    "launch.train.run()": "device= (cuda unless named)",
+                                      "device=, shardings= with mesh=",
+    "launch.train.run()": "device= (cuda unless named) and mesh= (a "
+                          "DeviceMesh; the reference takes shardings "
+                          "from its caller)",
     "train.sharding.Mesh": "jax's Mesh class: a mesh here is a torch "
                            "DeviceMesh or a mapping of axis name to size "
                            "(a type alias for checkers only)",
