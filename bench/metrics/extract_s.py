@@ -1,0 +1,9 @@
+"""`extract_s`: seconds of the ``extract_sort`` stage per diagram, from the
+program's ``StageReport`` (host clock to a synchronize at the stage's
+end)."""
+
+from bench.layers import stage_mean
+
+
+def read(ctx):
+    return stage_mean(ctx, "extract_sort")

@@ -1,0 +1,9 @@
+"""`order_s`: seconds of the ``order`` stage per diagram, from the
+program's ``StageReport`` (host clock to a synchronize at the stage's
+end)."""
+
+from bench.layers import stage_mean
+
+
+def read(ctx):
+    return stage_mean(ctx, "order")

@@ -1,0 +1,11 @@
+"""Put the checkout's root (for ``bench``) and ``src`` (for the program)
+on ``sys.path``."""
+
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+for p in (os.path.join(ROOT, "src"), ROOT):
+    if p not in sys.path:
+        sys.path.insert(0, p)
