@@ -20,6 +20,10 @@ go through a :class:`Ring`:
   rank's stack, and across ranks ``batch_isend_irecv`` (one edge block
   per shift), ``all_gather_into_tensor``, ``all_to_all_single`` and
   ``all_reduce``.  gloo on the CPU, NCCL across cards, one rank per card.
+  Under an active trace each of them is a sub-span ``comm.<op>``
+  (``obs.trace.sub_span``) on the calling stream, from just before the
+  collective is queued (a shift: from its wait) to just after its wait:
+  the time the caller's stream spends waiting on the group.
 
 :func:`block_ring` chooses between them.  Shapes, for ``x`` of shape
 ``(Bl, ...)``: ``shift`` and the reductions keep it; ``all_gather``
@@ -33,6 +37,8 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from repro_torch.obs.trace import sub_span
 
 
 class Ring:
@@ -205,8 +211,9 @@ class GroupRing(Ring):
         def wait():
             # under NCCL, wait() orders the receive before the copy on
             # the current stream
-            for q in reqs:
-                q.wait()
+            with sub_span("comm.shift", self.device):
+                for q in reqs:
+                    q.wait()
             if has_src:
                 out[edge] = recv.to(x.dtype)
             return out
@@ -219,7 +226,8 @@ class GroupRing(Ring):
         # all_gather_single replaces all_gather_into_tensor in newer torch
         gather = getattr(self._dist, "all_gather_single", None) \
             or self._dist.all_gather_into_tensor
-        gather(out, src, group=self.group)
+        with sub_span("comm.all_gather", self.device):
+            gather(out, src, group=self.group)
         out = out.to(x.dtype).reshape((self.n_blocks,) + x.shape[1:])
         return out[None].expand((self.bl,) + out.shape)
 
@@ -230,22 +238,24 @@ class GroupRing(Ring):
         w, bl, tail = self.world, self.bl, x.shape[2:]
         send = self._wire(x.reshape((bl, w, bl) + tail).transpose(0, 1))
         recv = torch.empty_like(send)
-        self._dist.all_to_all_single(recv, send, group=self.group)
+        with sub_span("comm.all_to_all", self.device):
+            self._dist.all_to_all_single(recv, send, group=self.group)
         return recv.to(x.dtype).reshape((self.n_blocks, bl) + tail) \
             .transpose(0, 1).contiguous()
 
-    def _reduce(self, local, x, op):
+    def _reduce(self, local, x, op, name):
         y = local.contiguous()
-        self._dist.all_reduce(y, op=op, group=self.group)
+        with sub_span(name, self.device):
+            self._dist.all_reduce(y, op=op, group=self.group)
         return y.to(x.dtype).expand(x.shape)
 
     def psum(self, x):
         return self._reduce(self._wire(x).sum(0, keepdim=True), x,
-                            self._dist.ReduceOp.SUM)
+                            self._dist.ReduceOp.SUM, "comm.psum")
 
     def pmax(self, x):
         return self._reduce(self._wire(x).amax(0, keepdim=True), x,
-                            self._dist.ReduceOp.MAX)
+                            self._dist.ReduceOp.MAX, "comm.pmax")
 
 
 def block_ring(n_blocks: int, device=None) -> Ring:

@@ -59,7 +59,7 @@ def pairing_fixpoint(g: ExtremumGraph, collect_stats: bool = False
         stats.rounds += 1
         _watchdog.progress("pairing.d0")    # round heartbeat
         with maybe_span(tr, "d0_round", round=stats.rounds):
-            new_rep, new_repkey, new_pair, prop = _d0_round(
+            new_rep, new_repkey, new_pair, prop, _ = _d0_round(
                 c0, c1, skey, ekey, rep, repkey)
             if collect_stats:
                 stats.proposals += int(prop.sum())

@@ -50,6 +50,8 @@ from repro_torch.kernels.lower_star import (fused_rows_from_halo_volume,
                                             lower_star_gradient_prepass)
 from repro_torch.kernels.ref import lower_star_gradient_torch
 from repro_torch.obs import flight as _flight
+from repro_torch.obs.trace import Trace, current_trace, sub_scope, \
+    trace_active
 
 from .comm import Ring, block_ring
 from .order import rankfree_keys, sample_sort_ranks
@@ -159,6 +161,24 @@ class _Steps:
         steps = self.stats["steps"]
         steps[name] = steps.get(name, 0.0) + t - self.t0
         self.t0 = t
+
+
+def _gather_step(stats: dict, device, t0: float, stepped: float,
+                 scope) -> None:
+    """Close a ``run_front`` call's steps: ``gather``, what its steps left
+    of the time since ``t0`` (``stepped``: their sum before the call),
+    to a synchronize; then each resolved sub-span of ``scope`` added to
+    the step named by its first part (``comm.shift`` -> ``comm``)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    steps = stats["steps"]
+    own = sum(steps.values()) - stepped
+    steps["gather"] = steps.get("gather", 0.0) + \
+        time.perf_counter() - t0 - own
+    if scope is not None:
+        for k, sec in scope.resolve().items():
+            top = k.split(".")[0]
+            steps[top] = steps.get(top, 0.0) + sec
 
 
 # --------------------------------------------------------------------------
@@ -602,7 +622,12 @@ def run_front(dims, f, n_blocks: int, ring: Optional[Ring] = None,
     outputs concatenated over the blocks in order, the replicated ones
     once.
     ``stats`` (a dict) receives the per-step seconds, ring rotations,
-    sample-sort bucket peak and buffer sizes.
+    sample-sort bucket peak and buffer sizes.  Its ``steps`` add
+    ``gather`` (from the ``resolution`` step's end to the return: the
+    replicated reductions, the gather of every block's outputs and the
+    ``crit_peak`` read) and, over a ``GroupRing``, ``comm``: the device
+    seconds of the ring's ``comm.<op>`` sub-spans, the time the compute
+    stream waited on the group.
     Raises :class:`CritCapacityError` (after a flight-recorder dump) when
     a block overflows its triplet buffers."""
     cfg = FrontConfig(tuple(int(d) for d in dims), n_blocks, **cfg_kw)
@@ -621,11 +646,21 @@ def run_front(dims, f, n_blocks: int, ring: Optional[Ring] = None,
                          f"{ring.device}; pass device= to move it")
     f_slab = f.reshape(n_blocks, cfg.nv_local).to(
         device=ring.device, dtype=torch.float32)[ring.blocks()]
-    out = front_device_fn(cfg, ring, f_slab, stats)
-    out = {k: (v[0] if k in REPLICATED
-               else ring.gather_blocks(v).flatten(0, 1))
-           for k, v in out.items()}
-    peak = int(out["crit_peak"])
+    # with stats, the call is a scope of the ring's comm sub-spans, under
+    # a trace of its own where none is active
+    own = Trace() if stats is not None and current_trace() is None \
+        else None
+    with trace_active(own), sub_scope(
+            current_trace() if stats is not None else None, "") as scope:
+        t0 = time.perf_counter()
+        stepped = sum(stats.get("steps", {}).values()) if stats else 0.0
+        out = front_device_fn(cfg, ring, f_slab, stats)
+        out = {k: (v[0] if k in REPLICATED
+                   else ring.gather_blocks(v).flatten(0, 1))
+               for k, v in out.items()}
+        peak = int(out["crit_peak"])
+        if stats is not None:
+            _gather_step(stats, ring.device, t0, stepped, scope)
     if peak > cfg.crit_capacity:
         err = CritCapacityError(peak, cfg.crit_capacity, cfg.dims, n_blocks)
         _flight.crash_dump("crit_capacity", exc=err)

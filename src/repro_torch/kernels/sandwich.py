@@ -41,7 +41,7 @@ from repro_torch.core.saddle_saddle import SaddleSaddlePairs
 from repro_torch.core.tracing import (OMEGA, _exit_cofacet, resolve_chase,
                                       resolve_doubling, tet_successors)
 from repro_torch.obs.metrics import global_metrics
-from repro_torch.obs.trace import current_trace, maybe_span
+from repro_torch.obs.trace import current_trace, maybe_span, sub_span
 
 NOKEY = int(np.iinfo(np.int64).max)    # "unassigned" representative tag
 CUDA_BATCH = 1 << 20                   # D1 wavefront columns per batch
@@ -107,21 +107,26 @@ def extract_critical_kernel(grid: Grid, gf: GradientField,
     order = order.reshape(-1)
     o = order if order.numel() == 0 or int(order.max()) < 2 ** 31 \
         else _rank_compress(order)
+    dev = o.device
     crit_sids: Dict[int, torch.Tensor] = {}
     ranks: Dict[int, torch.Tensor] = {}
     for k in range(grid.dim + 1):
-        cs = gf.critical_sids(k)
+        with sub_span("select", dev):
+            cs = gf.critical_sids(k)
         if k == 0:
             ranks[0] = o.long()
         elif k == 1:
-            ranks[1] = edge_keys_kernel(grid, o)
+            with sub_span("edge_keys", dev):
+                ranks[1] = edge_keys_kernel(grid, o)
         else:
-            perm = _lexsort_rows(grid.simplex_key(k, cs, o.long()))
-            rk = torch.full((grid.sid_space(k),), -1, dtype=torch.int64,
-                            device=o.device)
-            rk[cs[perm]] = _arange(len(cs), cs)
-            ranks[k] = rk
-        crit_sids[k] = cs[torch.argsort(ranks[k][cs], stable=True)]
+            with sub_span("ranks", dev):
+                perm = _lexsort_rows(grid.simplex_key(k, cs, o.long()))
+                rk = torch.full((grid.sid_space(k),), -1,
+                                dtype=torch.int64, device=dev)
+                rk[cs[perm]] = _arange(len(cs), cs)
+                ranks[k] = rk
+        with sub_span("sort", dev):
+            crit_sids[k] = cs[torch.argsort(ranks[k][cs], stable=True)]
     return CriticalInfo(grid, order, crit_sids, ranks)
 
 
@@ -146,11 +151,14 @@ def _d0_round(c0, c1, skey, ekey, rep, repkey):
     """One self-correcting round: age-filtered find (follow rep links only
     while the assigning saddle is older), per-triplet proposals, and an
     oldest-saddle-wins rebuild by scatter-min.  Returns the new (rep,
-    repkey, pair) and the proposal mask."""
+    repkey, pair), the proposal mask and the host reads of the find (one
+    a jump, and the last that finds none)."""
     m = len(rep)
     cur = torch.stack([c0, c1], dim=1)
+    reads = 0
     while True:
         step = repkey[cur] < skey[:, None]
+        reads += 1
         if not bool(step.any()):
             break
         cur = torch.where(step, rep[cur], cur)
@@ -169,7 +177,7 @@ def _d0_round(c0, c1, skey, ekey, rep, repkey):
     new_repkey[tgt] = skey[is_win]
     new_pair = torch.full_like(rep, -1)
     new_pair[tgt] = _arange(len(skey), skey)[is_win]
-    return new_rep, new_repkey, new_pair, prop
+    return new_rep, new_repkey, new_pair, prop, reads
 
 
 def _fixpoint_init(g: ExtremumGraph):
@@ -200,17 +208,25 @@ def pair_extrema_saddles_kernel(g: ExtremumGraph) -> ExtremaPairs:
         return _no_pairs(g)
     nodes, c0, c1, ne, skey, ekey, rep, repkey, pair = _fixpoint_init(g)
     tr = current_trace()
-    n_rounds = 0
+    n_rounds = syncs = 0
+
+    def equal(a, b):
+        nonlocal syncs
+        syncs += 1
+        return torch.equal(a, b)
     while True:
         n_rounds += 1
         with maybe_span(tr, "d0_round", round=n_rounds):
-            new_rep, new_repkey, new_pair, _ = _d0_round(c0, c1, skey, ekey,
-                                                         rep, repkey)
-        if torch.equal(new_rep, rep) and torch.equal(new_pair, pair) \
-                and torch.equal(new_repkey, repkey):
+            new_rep, new_repkey, new_pair, _, reads = _d0_round(
+                c0, c1, skey, ekey, rep, repkey)
+        syncs += reads
+        if equal(new_rep, rep) and equal(new_pair, pair) \
+                and equal(new_repkey, repkey):
             break
         rep, repkey, pair = new_rep, new_repkey, new_pair
     global_metrics().counter("pairing.d0_rounds").inc(n_rounds)
+    if tr is not None:
+        tr.count("host_syncs", syncs)
     return _extrema_pairs(g, nodes, pair, ne)
 
 

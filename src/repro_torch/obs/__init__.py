@@ -17,8 +17,9 @@ stall watchdog (the port's own copies of ``repro.obs``, pure Python).
   (embedded in ``TopoService(metrics_port=...)``) and the periodic
   ``SnapshotLogger``.
 
-``TopoRequest(trace=True)`` records one run's stage spans
-(``result.trace``).  ``set_enabled(False)`` is the one kill switch.
+``TopoRequest(trace=True)`` records one run's stage spans and their
+device-timed sub-spans (``result.trace``, ``result.stats``).
+``set_enabled(False)`` is the one kill switch.
 """
 
 from .metrics import (Counter, Gauge, Histogram,  # noqa: F401

@@ -50,7 +50,7 @@ from repro_torch.core.diagram import Diagram
 from repro_torch.core.grid import Grid
 from repro_torch.core.gradient import scatter_results_batch
 from repro_torch.obs.trace import Trace, current_trace, maybe_span, \
-    trace_active
+    sub_scope, sub_span, trace_active
 
 from .backends import (Backend, SandwichBackend, available_backends,
                        get_backend, get_sandwich_backend)
@@ -305,17 +305,24 @@ class PersistencePipeline:
         for state, report in zip(states, reports):
             run_stages(state, cfg, report, stages=(_STAGES_BY_NAME["order"],))
 
+        tr = current_trace()
         t0 = time.perf_counter()
-        with maybe_span(current_trace(), "gradient", batch_size=B):
-            rows = ex.rows_program(torch.stack([s.order for s in states]))
-            gfs = scatter_results_batch(grid, *rows, B=B,
-                                        offsets=ex.row_offsets)
+        with maybe_span(tr, "gradient", batch_size=B), \
+                sub_scope(tr, "gradient") as sc:
+            with sub_span("rows", self.device):
+                rows = ex.rows_program(torch.stack([s.order for s in states]))
+            with sub_span("scatter", self.device):
+                gfs = scatter_results_batch(grid, *rows, B=B,
+                                            offsets=ex.row_offsets)
             del rows
             _sync()
         dt = (time.perf_counter() - t0) / B
+        parts = sc.resolve() if sc is not None else {}
         for state, report, gf in zip(states, reports, gfs):
             rep = report.child("gradient")
             rep.seconds = dt
+            for k, s in parts.items():
+                rep.child(k).seconds = s / B
             n_crit = gf.n_critical()
             rep.count(n_critical=sum(n_crit.values()), batch_size=B,
                       **{f"n_critical_d{k}": v for k, v in n_crit.items()})

@@ -18,8 +18,12 @@ The report is span-backed: a report made while a
 :class:`~repro_torch.obs.trace.Trace` is active on the thread
 (``TopoRequest(trace=True)``) binds to it, and every ``stage()`` records a
 span of the same name that closes after the stage's synchronize, with the
-stage counters as its attributes.  Untraced stages go to the always-on
-flight recorder instead.
+stage counters as its attributes.  The stage is a scope of sub-spans
+(``obs.trace.sub_span``): after its synchronize each sub-span name
+becomes a child report with the device seconds of its sub-spans summed
+(``gradient.scatter``, ``extract_sort.edge_keys``, ``d0.fixpoint``), and
+each scope counter a counter ``<stage>_<counter>`` (``d0_host_syncs``).
+Untraced stages go to the always-on flight recorder instead.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from typing import Dict, List, Optional
 import torch
 
 from repro_torch.obs import flight as _flight
-from repro_torch.obs.trace import Trace, current_trace
+from repro_torch.obs.trace import Trace, current_trace, sub_span
 
 from repro_torch.core.critical import CriticalInfo
 from repro_torch.core.diagram import Diagram
@@ -92,13 +96,16 @@ class StageReport:
                 r.seconds += dt
                 _flight.record_event(name, t0, dt, r.counters or None)
             return
-        with tr.span(name) as sp:
+        with tr.span(name) as sp, tr.scope(name) as sc:
             t0 = time.perf_counter()
             try:
                 yield r
             finally:
                 _sync()
                 r.seconds += time.perf_counter() - t0
+                for k, s in sc.resolve().items():
+                    r.child(k).seconds = s
+                r.count(**{f"{name}_{k}": v for k, v in sc.counters.items()})
                 sp.args.update(r.counters)
 
     def count(self, **counters) -> None:
@@ -278,8 +285,11 @@ class D0Stage:
     def run(self, state: PipelineState, cfg, rep: StageReport) -> None:
         grid, ci = state.grid, state.ci
         if grid.dim >= 1:
-            p0 = _pair_graph(build_d0_graph(grid, state.gf, ci), cfg, rep,
-                             "d0")
+            dev = state.order.device
+            with sub_span("graph", dev):
+                g = build_d0_graph(grid, state.gf, ci)
+            with sub_span("fixpoint", dev):
+                p0 = _pair_graph(g, cfg, rep, "d0")
             state.pairs[0] = as_pairs(p0.extrema, p0.saddles)
             state.essential[0] = _sorted(_minus(ci.crit_sids[0], p0.extrema))
             state.d0_saddles = p0.saddles

@@ -30,6 +30,13 @@ DOCUMENTED = {
                              "of backend=",
     "cache.fingerprint_array()": "takes an ndarray or a tensor, so no "
                                  "ndarray annotation",
+    "obs.Trace.count": "a counter of the innermost sub-span scope (D0's "
+                       "host syncs); the reference has no sub-spans",
+    "obs.Trace.scope": "collects the device-timed sub-spans of a stage "
+                       "or a run_front call",
+    "obs.Trace.sub_span": "a sub-span timed on the device (CUDA events, "
+                          "a profiler range); the reference times stages "
+                          "on the host only",
     "pipeline.Backend()": "rows-based protocol: rows(grid, orders) in place "
                           "of gradient + batched_rows (eager, no jit)",
     "pipeline.Backend.batched_rows": "no jitted batched program: rows is "

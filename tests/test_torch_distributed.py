@@ -209,14 +209,16 @@ def test_overlap_comm_gives_identical_outputs(backend):
                      overlap_comm=False)
     for k in a:
         assert torch.equal(a[k], b[k]), k
+    # a LocalRing has no collectives to time: no comm step
     assert set(stats["steps"]) == {"order", "halo", "gradient", "successors",
-                                   "emission", "resolution"}
+                                   "emission", "resolution", "gather"}
     assert stats["ring_rotations"]["v"] >= 1
     assert stats["sort_bucket_peak"] <= stats["sort_percap"]
 
 
 # (world, blocks per rank) -> the jobs of torch_distributed_group.py
-GROUP_RUNS = {(2, 1): ("front", "ring"), (2, 2): ("ring", "ref", "pipeline"),
+GROUP_RUNS = {(2, 1): ("front", "ring", "stats"),
+              (2, 2): ("ring", "ref", "pipeline"),
               (4, 1): ("ring",)}
 
 
@@ -250,6 +252,20 @@ def test_group_ring_equals_local_ring(group_run):
             for k, v in want.items():
                 assert v.dtype == got[name][k].dtype, (name, k)
                 assert torch.equal(v, got[name][k]), (name, k)
+
+
+def test_group_front_stats_add_gather_and_comm(group_run):
+    """Over 2 gloo ranks, ``stats`` gets the six steps, ``gather`` and
+    ``comm`` (the ring's collectives, > 0), within their sum; without
+    ``stats`` the outputs are the same and nothing is recorded."""
+    six = {"order", "halo", "gradient", "successors", "emission",
+           "resolution"}
+    for got in group_run(2, 1):
+        steps = got["stats_steps"]
+        assert set(steps) == six | {"gather", "comm"}
+        assert 0 < steps["comm"] <= sum(steps[k] for k in six | {"gather"})
+        assert steps["gather"] > 0
+        assert got["stats_same"] is True
 
 
 @pytest.mark.parametrize("world,blocks", sorted(GROUP_RUNS))

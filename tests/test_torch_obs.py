@@ -3,8 +3,9 @@ exposition (``repro_torch.obs.exposition``) against the JAX package's for
 identically filled registries, its scrape endpoint and snapshot logger;
 ``TopoRequest(trace=True)`` runs (one span per stage, bit-identical to an
 untraced run, streamed chunk spans, the same D0 / D1 round spans and
-round counters as the JAX package's); and the plan cache's process-wide
-counters."""
+round counters as the JAX package's, the port's device-timed sub-spans
+and D0's host-sync counter, none of them in an untraced run); and the
+plan cache's process-wide counters."""
 
 import collections
 import json
@@ -12,6 +13,7 @@ import urllib.request
 
 import numpy as np
 import pytest
+import torch
 
 from repro.core import grid as JG
 from repro.obs import exposition as JX
@@ -22,7 +24,8 @@ from repro.pipeline import TopoRequest as JRequest
 
 from repro_torch.core.grid import Grid
 from repro_torch.fields.generators import make_field
-from repro_torch.obs import (MetricsRegistry, SnapshotLogger, global_metrics,
+from repro_torch.obs import (MetricsRegistry, SnapshotLogger,
+                             default_recorder, global_metrics,
                              parse_prometheus_text, prometheus_name,
                              render_prometheus, serve_metrics,
                              validate_trace_events)
@@ -91,25 +94,69 @@ def test_service_embeds_metrics_endpoint():
     assert "plan_cache_hits_total" in doc
 
 
-@pytest.mark.parametrize("name,dims", [("isabel", (8, 7, 6)),
-                                       ("random", (9, 8)),
-                                       ("wavelet", (12,))])
-def test_traced_run_is_bit_identical(name, dims):
+# the device-timed sub-spans of a traced run: flat key -> least grid dim
+SUB_SPANS = {"gradient.rows": 0, "gradient.scatter": 0,
+             "extract_sort.select": 0, "extract_sort.sort": 0,
+             "extract_sort.edge_keys": 1, "extract_sort.ranks": 2,
+             "d0.graph": 1, "d0.fixpoint": 1}
+
+
+def _raise(*a, **kw):
+    raise AssertionError("an untraced run made a CUDA event or a "
+                         "profiler range")
+
+
+@pytest.mark.parametrize("name,dims,hdims", [("isabel", (8, 7, 6), None),
+                                             ("random", (9, 8), None),
+                                             ("wavelet", (12,), None),
+                                             ("random", (9, 8, 7), (0,))])
+def test_traced_run_is_bit_identical(name, dims, hdims, monkeypatch):
     f = make_field(name, dims, seed=1)
     pipe = PersistencePipeline(device="cpu")
-    req = TopoRequest(field=f, grid=Grid.of(*dims))
-    plain = pipe.run(req)
+    req = TopoRequest(field=f, grid=Grid.of(*dims), homology_dims=hdims)
+    flight = []
+    rec = default_recorder()
+    with monkeypatch.context() as m:
+        # the untraced path makes no event, range or sub-span record
+        m.setattr(torch.cuda, "Event", _raise)
+        m.setattr(torch.profiler, "record_function", _raise)
+        m.setattr(rec, "record", lambda n, *a, **kw: flight.append(n))
+        plain = pipe.run(req)
+    assert flight and not [n for n in flight if "." in n]
+    assert not set(plain.stats) & (set(SUB_SPANS) | {"d0_host_syncs"})
+    rounds = global_metrics().counter("pairing.d0_rounds")
+    before = rounds.value
     traced = pipe.run(req.replace(trace=True))
     assert plain.trace is None and traced.trace is not None
     assert traced.to_bytes() == plain.to_bytes()
     doc = traced.trace.to_dict()
     validate_trace_events(doc)
     spans = [e["name"] for e in doc["traceEvents"] if e["ph"] == "X"]
-    # one span per stage; the D0 / D1 round spans nest inside them
+    # one span per stage; the D0 / D1 round spans and the sub-spans nest
+    # inside them
     assert [n for n in spans if n in STAGES] == list(traced.plan.stage_names)
-    assert set(spans) <= set(STAGES) | {"d0_round", "d1_round"}
+    assert set(spans) <= set(STAGES) | {"d0_round", "d1_round"} \
+        | set(SUB_SPANS)
+    want = {k for k, d in SUB_SPANS.items() if len(dims) >= d}
+    assert want <= set(traced.stats) and want <= set(spans)
+    for k in want:
+        stage = k.split(".")[0]
+        outer = [e for e in doc["traceEvents"] if e["name"] == stage][0]
+        for e in doc["traceEvents"]:
+            if e["name"] == k:
+                assert outer["ts"] <= e["ts"] and e["ts"] + e["dur"] <= \
+                    outer["ts"] + outer["dur"] + 0.5, k
+    for stage in ("gradient", "extract_sort", "d0"):
+        parts = [traced.stats[k] for k in want if k.startswith(stage + ".")]
+        assert sum(parts) <= traced.stats[stage], stage
+    # a jump's read, the last find's and at least one torch.equal a round
+    syncs = sum(v for k, v in traced.stats.items()
+                if k.endswith("_host_syncs"))
+    assert syncs >= 2 * (rounds.value - before) > 0
+    if hdims == (0,):
+        assert syncs == traced.stats["d0_host_syncs"]
     d1 = [e for e in doc["traceEvents"] if e["name"] == "d1"]
-    if len(dims) == 3:
+    if len(dims) == 3 and "d1" in traced.plan.stage_names:
         assert d1[0]["args"]["d1_rounds"] == traced.stats["d1_rounds"]
     # a batch with a traced member serves it alone, with its own trace
     outs = pipe.run_batch([req, req.replace(trace=True), req])
@@ -127,7 +174,8 @@ def test_round_spans_and_counters_match_reference(dims, n_blocks):
     dual pairing round) and ``d1_round`` (each D1 round: the wavefront's
     batched path at 16^3, the token engine of the distributed back-end at
     n_blocks=2), as many of each, and bumps ``pairing.d0_rounds`` /
-    ``pairing.d1_rounds`` by the same amounts."""
+    ``pairing.d1_rounds`` by the same amounts; its other spans are the
+    port's sub-spans."""
     f = make_field("random", dims, seed=1)
 
     def run(pipe, req, registry):
@@ -148,7 +196,11 @@ def test_round_spans_and_counters_match_reference(dims, n_blocks):
         TopoRequest(field=f, grid=Grid.of(*dims), trace=True),
         global_metrics())
     assert got.to_bytes() == want.to_bytes()
-    assert got_spans == want_spans
+    # the reference's spans as many times; besides them the port's
+    # device-timed sub-spans only
+    assert {k: v for k, v in got_spans.items() if k in want_spans} == \
+        want_spans
+    assert set(got_spans) - set(want_spans) <= set(SUB_SPANS)
     assert got_spans["d0_round"] > 0 and got_spans["d1_round"] > 0
     assert got_inc == want_inc and got_inc[1] == got.stats["d1_rounds"]
 

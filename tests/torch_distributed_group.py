@@ -5,7 +5,7 @@ writes them with ``torch.save`` as ``{"ranks": [rank 0's, rank 1's,
 ...]}``:
 
     python tests/torch_distributed_group.py OUT.pt [--world 2] \
-        [--blocks 1] [--jobs front ring ref pipeline]
+        [--blocks 1] [--jobs front ring ref pipeline stats]
 
 Jobs: ``ring`` applies every collective (:func:`ring_ops`) to this rank's
 blocks of :func:`ring_inputs`; ``front`` runs ``CASES`` through
@@ -15,6 +15,9 @@ with ``distributed`` off and on, and records the errors of an
 indivisible block count and of a device that is not the group's
 (``block_ring``'s, a pipeline's, and ``run_front``'s on a field that
 lies off the host with no ``device=``).
+``stats`` runs the ``sort`` case through ``run_front`` with ``stats`` and
+again without, with CUDA events, profiler ranges and flight-recorder
+records made to fail in the second.
 ``test_torch_distributed.py`` holds them equal to the same calls over a
 ``LocalRing`` in one process, and to the JAX package.
 """
@@ -116,6 +119,26 @@ def _worker(rank, init, out, world, blocks, jobs):
         for name, (dims, seed, kw) in CASES.items():
             _, o = run_front(dims, case_field(dims, seed), nb, **kw)
             res[name] = {k: v.clone() for k, v in o.items()}
+    if "stats" in jobs:
+        import repro_torch.obs.flight as flight
+        dims, seed, kw = CASES["sort"]
+        st = {}
+        _, a = run_front(dims, case_field(dims, seed), nb, stats=st, **kw)
+
+        def boom(*a, **k):
+            raise RuntimeError("recorded without stats")
+        saved = (torch.cuda.Event, torch.profiler.record_function,
+                 flight.FlightRecorder.record)
+        torch.cuda.Event = torch.profiler.record_function = boom
+        flight.FlightRecorder.record = boom
+        try:
+            _, b = run_front(dims, case_field(dims, seed), nb, **kw)
+        finally:
+            (torch.cuda.Event, torch.profiler.record_function,
+             flight.FlightRecorder.record) = saved
+        res["stats_steps"] = dict(st["steps"])
+        res["stats_same"] = set(a) == set(b) and all(
+            torch.equal(a[k], b[k]) for k in a)
     if "ref" in jobs:
         import torch_distributed_ref as REF
         for name, (dims, seed, kw) in REF.CASES.items():
@@ -160,7 +183,8 @@ def main(argv):
     ap.add_argument("--blocks", type=int, default=1,
                     help="blocks per rank")
     ap.add_argument("--jobs", nargs="+", default=["front"],
-                    choices=["front", "ring", "ref", "pipeline"])
+                    choices=["front", "ring", "ref", "pipeline",
+                             "stats"])
     args = ap.parse_args(argv)
     with tempfile.TemporaryDirectory() as tmp:
         init = "file://" + os.path.join(tmp, "rendezvous")
