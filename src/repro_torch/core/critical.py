@@ -7,13 +7,15 @@ dimension k (numpy's ``lexsort`` on a host copy of the descending
 vertex-order keys), and the critical simplices are sorted by it.  The
 kernel back-end builds the same :class:`CriticalInfo` with
 :func:`repro_torch.kernels.sandwich.extract_critical_kernel`; every later
-stage only *compares* ranks, so any order-isomorphic injective key works.
+stage only *compares* ranks, so any order-isomorphic injective key works,
+and an entry no stage reads need never be built (:class:`DeferredRanks`).
 """
 
 from __future__ import annotations
 
+from collections.abc import Mapping
 from dataclasses import dataclass
-from typing import Dict
+from typing import Callable, Dict, Iterator
 
 import numpy as np
 import torch
@@ -35,14 +37,45 @@ def simplex_ranks(grid: Grid, k: int, order: torch.Tensor) -> np.ndarray:
     return ranks
 
 
+class DeferredRanks(Mapping):
+    """A read-only ``{k: rank tensor}`` mapping whose entry ``k`` is built
+    on its first read, once, by calling ``build()``.  ``in``, ``len`` and
+    iteration build nothing; ``[]``, ``items()`` and ``values()`` build
+    what they return."""
+
+    def __init__(self, ready: Dict[int, torch.Tensor], k: int,
+                 build: Callable[[], torch.Tensor]):
+        self._ranks = dict(ready)
+        self._k, self._build = k, build
+
+    def __getitem__(self, k: int) -> torch.Tensor:
+        if k == self._k and k not in self._ranks:
+            self._ranks[k] = self._build()
+        return self._ranks[k]
+
+    def __contains__(self, k) -> bool:
+        return k == self._k or k in self._ranks
+
+    def __iter__(self) -> Iterator[int]:
+        return iter(sorted(self._ranks.keys() | {self._k}))
+
+    def __len__(self) -> int:
+        return len(self._ranks.keys() | {self._k})
+
+
 @dataclass
 class CriticalInfo:
-    """Sorted critical simplices + rank arrays per dimension (tensors)."""
+    """Sorted critical simplices + rank arrays per dimension (tensors).
+
+    ``ranks`` holds a dense (sid_space,) rank or key array per dimension,
+    as a plain dict or as :class:`DeferredRanks`: the kernel back-end
+    builds dimension 1's dense edge keys on first read, so a diagram
+    whose stages never read them (D0 only) never builds them."""
 
     grid: Grid
     order: torch.Tensor
     crit_sids: Dict[int, torch.Tensor]   # sorted by rank, ascending
-    ranks: Dict[int, torch.Tensor]       # dense rank/key arrays
+    ranks: Mapping                       # k -> dense rank/key array
 
     def max_vertex_order(self, k: int, sids: torch.Tensor) -> torch.Tensor:
         """Order of the max vertex of each k-simplex ``sids``."""

@@ -6,7 +6,9 @@ and essential classes as the reference, bit for bit:
 
 - :func:`extract_critical_kernel` — critical extraction with
   order-isomorphic ranks: vertex ranks are the vertex order, edge ranks
-  the packed ``o_max * 2^31 + o_min`` key, and triangle / tet ranks are
+  the packed ``o_max * 2^31 + o_min`` key (computed for the critical
+  edges to sort them; the dense array over every edge sid is built only
+  when a later stage reads ``ranks[1]``), and triangle / tet ranks are
   computed among critical simplices only (the only places they are
   compared);
 - :func:`pair_extrema_saddles_kernel` — the elder-rule Union-Find as a
@@ -32,10 +34,10 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core.critical import CriticalInfo
+from repro_torch.core.critical import CriticalInfo, DeferredRanks
 from repro_torch.core.extremum_graph import ExtremumGraph
 from repro_torch.core.gradient import GradientField
-from repro_torch.core.grid import FACES, NTYPES, Grid
+from repro_torch.core.grid import FACES, NTYPES, Grid, table
 from repro_torch.core.pairing import ExtremaPairs
 from repro_torch.core.saddle_saddle import SaddleSaddlePairs
 from repro_torch.core.tracing import (OMEGA, _exit_cofacet, resolve_chase,
@@ -87,23 +89,55 @@ def _rank_compress(order: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def edge_keys_kernel(grid: Grid, o: torch.Tensor) -> torch.Tensor:
-    """Dense packed edge key ``o_max * 2^31 + o_min`` per edge sid
-    (requires ``o < 2^31``); -1 on invalid sids."""
-    sids = _arange(grid.sid_space(1), o)
-    valid = grid.simplex_valid(1, sids)
-    keys = torch.full_like(sids, -1)
-    ov = o.long()[grid.simplex_vertices(1, sids[valid])]
-    keys[valid] = (torch.maximum(ov[:, 0], ov[:, 1]) << 31) \
-        + torch.minimum(ov[:, 0], ov[:, 1])
-    return keys
+def edge_keys_kernel(grid: Grid, o: torch.Tensor,
+                     sids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Packed edge key ``o_max * 2^31 + o_min`` of each edge sid in
+    ``sids``, or of every edge sid when ``sids`` is None (requires
+    ``o < 2^31``); -1 on invalid sids.  An edge's vertices are its base
+    vertex and the base shifted by its type's ``SPAN``: validity and the
+    far vertex share one coordinate decomposition, and no mask compaction
+    syncs with the host (the 7.8 M critical edges of a 336^3 field in
+    1.81 ms against 7.61 ms with ``simplex_valid`` + ``simplex_vertices``,
+    H100 80GB HBM3)."""
+    sids = _arange(grid.sid_space(1), o) if sids is None else sids.long()
+    base, t = grid.simplex_base_type(1, sids)
+    x, y, z = grid.vid_to_xyz(base)
+    sx, sy, sz = table("SPAN", 1, sids.device).T
+    x += sx[t]
+    y += sy[t]
+    z += sz[t]
+    nx, ny, nz = grid.dims
+    valid = (x < nx) & (y < ny) & (z < nz) & (sids >= 0)
+    base = base.clamp(min=0)
+    far = torch.where(valid, grid.xyz_to_vid(x, y, z), base)
+    a, b = o[base].long(), o[far].long()
+    return torch.where(valid, (torch.maximum(a, b) << 31)
+                       + torch.minimum(a, b), -1)
+
+
+def _dense_edge_keys(grid: Grid, o: torch.Tensor):
+    """The deferred dense :func:`edge_keys_kernel` for
+    :class:`DeferredRanks`: it runs under the ``edge_keys`` sub-span of
+    whichever stage reads ``ranks[1]`` first, and counts itself in
+    ``pairing.dense_edge_keys`` (and the trace's ``dense_edge_keys``)."""
+    def build() -> torch.Tensor:
+        global_metrics().counter("pairing.dense_edge_keys").inc()
+        tr = current_trace()
+        if tr is not None:
+            tr.count("dense_edge_keys", 1)
+        with sub_span("edge_keys", o.device):
+            return edge_keys_kernel(grid, o)
+    return build
 
 
 def extract_critical_kernel(grid: Grid, gf: GradientField,
                             order: torch.Tensor) -> CriticalInfo:
-    """Critical extraction with order-isomorphic ranks: dimensions 0 and 1
-    keep dense keys, dimensions >= 2 rank only their critical simplices.
-    Same ``crit_sids`` sequences as the reference dense lexsort."""
+    """Critical extraction with order-isomorphic ranks.  Dimension 0's is
+    the order; dimension 1 keys only its critical edges to sort them, and
+    its dense key array is deferred (:class:`DeferredRanks`: built on the
+    first read of ``ranks[1]``, from the same ``o``); dimensions >= 2 rank
+    only their critical simplices.  Same ``crit_sids`` sequences as the
+    reference dense lexsort."""
     order = order.reshape(-1)
     o = order if order.numel() == 0 or int(order.max()) < 2 ** 31 \
         else _rank_compress(order)
@@ -117,7 +151,7 @@ def extract_critical_kernel(grid: Grid, gf: GradientField,
             ranks[0] = o.long()
         elif k == 1:
             with sub_span("edge_keys", dev):
-                ranks[1] = edge_keys_kernel(grid, o)
+                ck = edge_keys_kernel(grid, o, cs)
         else:
             with sub_span("ranks", dev):
                 perm = _lexsort_rows(grid.simplex_key(k, cs, o.long()))
@@ -126,7 +160,10 @@ def extract_critical_kernel(grid: Grid, gf: GradientField,
                 rk[cs[perm]] = _arange(len(cs), cs)
                 ranks[k] = rk
         with sub_span("sort", dev):
-            crit_sids[k] = cs[torch.argsort(ranks[k][cs], stable=True)]
+            key = ck if k == 1 else ranks[k][cs]
+            crit_sids[k] = cs[torch.argsort(key, stable=True)]
+    if grid.dim >= 1:
+        ranks = DeferredRanks(ranks, 1, _dense_edge_keys(grid, o))
     return CriticalInfo(grid, order, crit_sids, ranks)
 
 

@@ -99,6 +99,9 @@ SUB_SPANS = {"gradient.rows": 0, "gradient.scatter": 0,
              "extract_sort.select": 0, "extract_sort.sort": 0,
              "extract_sort.edge_keys": 1, "extract_sort.ranks": 2,
              "d0.graph": 1, "d0.fixpoint": 1}
+# the dense edge keys, built under the first stage that reads them: the
+# dual graph in 2-D, D1 in 3-D (grid dim -> flat key)
+DENSE_EDGE_KEYS = {2: "d_top.edge_keys", 3: "d1.edge_keys"}
 
 
 def _raise(*a, **kw):
@@ -136,8 +139,18 @@ def test_traced_run_is_bit_identical(name, dims, hdims, monkeypatch):
     # inside them
     assert [n for n in spans if n in STAGES] == list(traced.plan.stage_names)
     assert set(spans) <= set(STAGES) | {"d0_round", "d1_round"} \
-        | set(SUB_SPANS)
+        | set(SUB_SPANS) | set(DENSE_EDGE_KEYS.values())
     want = {k for k, d in SUB_SPANS.items() if len(dims) >= d}
+    # a D0-only diagram never builds them, a full one once
+    dense = DENSE_EDGE_KEYS.get(len(dims)) if hdims is None else None
+    assert [n for n in spans if n in DENSE_EDGE_KEYS.values()] == \
+        ([dense] if dense else [])
+    if dense:
+        stage = dense.split(".")[0]
+        assert traced.stats[stage + "_dense_edge_keys"] == 1
+        assert traced.stats[dense] <= traced.stats[stage]
+    assert sum(v for k, v in traced.stats.items()
+               if k.endswith("_dense_edge_keys")) == (1 if dense else 0)
     assert want <= set(traced.stats) and want <= set(spans)
     for k in want:
         stage = k.split(".")[0]
@@ -200,7 +213,8 @@ def test_round_spans_and_counters_match_reference(dims, n_blocks):
     # device-timed sub-spans only
     assert {k: v for k, v in got_spans.items() if k in want_spans} == \
         want_spans
-    assert set(got_spans) - set(want_spans) <= set(SUB_SPANS)
+    assert set(got_spans) - set(want_spans) <= set(SUB_SPANS) \
+        | set(DENSE_EDGE_KEYS.values())
     assert got_spans["d0_round"] > 0 and got_spans["d1_round"] > 0
     assert got_inc == want_inc and got_inc[1] == got.stats["d1_rounds"]
 

@@ -21,9 +21,13 @@ from repro_torch.core.extremum_graph import build_d0_graph
 from repro_torch.core.gradient import gradient_from_numpy
 from repro_torch.core.grid import Grid
 from repro_torch.kernels import sandwich as S
+from repro_torch.obs.metrics import global_metrics
+from repro_torch.pipeline import PersistencePipeline, TopoRequest
 
 ZOO = ["wavelet", "random", "elevation", "magnetic"]
 GRIDS = [(8, 8, 8), (5, 9, 3)]
+CASES = pytest.mark.parametrize(
+    "name,dims", [(n, d) for d in GRIDS + [(12, 10, 1)] for n in ZOO])
 
 
 def _inputs(name, dims, seed=3):
@@ -176,3 +180,115 @@ def test_extract_rank_compresses_wide_keys():
         np.testing.assert_array_equal(got.crit_sids[k].numpy(),
                                       want.crit_sids[k])
         np.testing.assert_array_equal(got.ranks[k].numpy(), want.ranks[k])
+
+
+# --------------------------------------------------------------------------
+# The dense edge keys, built only when a stage reads ``ranks[1]``
+# --------------------------------------------------------------------------
+
+def _dense_builds():
+    return global_metrics().counter("pairing.dense_edge_keys").value
+
+
+@CASES
+def test_deferred_edge_keys_match_reference(name, dims):
+    """``ranks[1]`` read through ``[]``, ``items()``, ``values()``,
+    ``to_numpy()`` and a ``from_numpy`` round trip is the reference's dense
+    key array, built once on the first read; ``in``, ``len`` and iteration
+    build nothing."""
+    jg, g, order, jgf, jci, gf, ci = _inputs(name, dims)
+    before = _dense_builds()
+    mine = S.extract_critical_kernel(g, gf, torch.from_numpy(order))
+    assert 1 in mine.ranks and 9 not in mine.ranks
+    assert list(mine.ranks) == sorted(jci.ranks) and \
+        len(mine.ranks) == len(jci.ranks)
+    assert _dense_builds() == before
+    first = mine.ranks[1]
+    assert _dense_builds() == before + 1
+    np.testing.assert_array_equal(first.numpy(), jci.ranks[1])
+    assert mine.ranks[1] is first
+    assert any(v is first for v in mine.ranks.values())
+    items = dict(mine.ranks.items())
+    assert sorted(items) == sorted(jci.ranks)
+    for k, v in items.items():
+        np.testing.assert_array_equal(v.numpy(), jci.ranks[k], err_msg=k)
+    o, cs, rk = mine.to_numpy()
+    np.testing.assert_array_equal(rk[1], jci.ranks[1])
+    back = CriticalInfo.from_numpy(g, o, cs, rk, "cpu")
+    for k in jci.ranks:
+        np.testing.assert_array_equal(back.ranks[k].numpy(), jci.ranks[k])
+        np.testing.assert_array_equal(back.crit_sids[k].numpy(),
+                                      jci.crit_sids[k])
+    assert _dense_builds() == before + 1
+
+
+@CASES
+def test_d0_builds_no_dense_edge_keys(name, dims):
+    """Extraction, the D0 graph and its pairing never read ``ranks[1]``,
+    and give the reference's critical cells and D0 pairs."""
+    jg, g, order, jgf, jci, gf, ci = _inputs(name, dims)
+    before = _dense_builds()
+    mine = S.extract_critical_kernel(g, gf, torch.from_numpy(order))
+    for k in jci.crit_sids:
+        np.testing.assert_array_equal(mine.crit_sids[k].numpy(),
+                                      jci.crit_sids[k], err_msg=f"crit {k}")
+    p0 = S.pair_extrema_saddles_kernel(build_d0_graph(g, gf, mine))
+    jp0 = JS.pair_extrema_saddles_kernel(j_build_d0(jg, jgf, jci))
+    assert p0.pairs == jp0.pairs
+    assert p0.unpaired.tolist() == jp0.unpaired
+    assert _dense_builds() == before
+
+
+@CASES
+def test_pipeline_builds_dense_edge_keys_only_for_full_diagrams(name, dims):
+    """Through the pipeline's ``torch`` sandwich back-end a D0-only request
+    builds no dense edge keys and a full one builds them once; both give
+    the ``np`` back-end's diagram."""
+    f = make_field(name, dims, seed=3)
+    grid = Grid.of(*dims)
+    torch_pipe = PersistencePipeline(device="cpu")
+    np_pipe = PersistencePipeline(device="cpu", sandwich_backend="np")
+    for hdims, builds in (((0,), 0), (None, 1)):
+        req = TopoRequest(field=f, grid=grid, homology_dims=hdims)
+        before = _dense_builds()
+        got = torch_pipe.run(req)
+        assert _dense_builds() - before == builds, hdims
+        assert got.to_bytes() == np_pipe.run(req).to_bytes(), hdims
+
+
+@CASES
+def test_wide_keys_defer_the_compressed_edge_keys(name, dims):
+    """Full-width int64 keys: the critical edges are keyed, and the
+    deferred dense keys built, from the rank-compressed order."""
+    jg, g, order, jgf, jci, gf, ci = _inputs(name, dims)
+    wide = order.astype(np.int64) * (1 << 33) + 12345
+    want = JS.extract_critical_kernel(jg, jgf, wide)
+    before = _dense_builds()
+    got = S.extract_critical_kernel(g, gf, torch.from_numpy(wide))
+    for k in want.crit_sids:
+        np.testing.assert_array_equal(got.crit_sids[k].numpy(),
+                                      want.crit_sids[k])
+    assert _dense_builds() == before
+    np.testing.assert_array_equal(got.ranks[1].numpy(), want.ranks[1])
+    assert _dense_builds() == before + 1
+
+
+@CASES
+def test_critical_edge_keys_match_the_dense_keys(name, dims):
+    """:func:`edge_keys_kernel` of any edge sids, the critical ones that
+    extraction sorts by them included, gives the reference's dense key
+    array at those sids: -1 on invalid and negative sids, and the same
+    with an int32 order."""
+    jg, g, order, jgf, jci, gf, ci = _inputs(name, dims)
+    o = torch.from_numpy(order)
+    ref = torch.from_numpy(jci.ranks[1])
+    assert torch.equal(S.edge_keys_kernel(g, o), ref)
+    every = torch.arange(g.sid_space(1))
+    gen = torch.Generator().manual_seed(0)
+    some = torch.cat([torch.randperm(g.sid_space(1), generator=gen)[:97],
+                      torch.tensor([-1, -8])])
+    cs = gf.critical_sids(1)
+    for sids in (every, some, cs):
+        want = torch.where(sids >= 0, ref[sids.clamp(min=0)], -1)
+        assert torch.equal(S.edge_keys_kernel(g, o, sids), want)
+        assert torch.equal(S.edge_keys_kernel(g, o.int(), sids), want)
